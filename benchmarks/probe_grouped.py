@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Probe: can the rank-8 scheme win BELOW 128 quaternion channels?
 
-Round-3 finding (docs/performance.md): at C=64 the stacked rank-8 conv runs
-at 0.64x the block path because each of the 8 product convs only fills 64 of
-the MXU's 128 output lanes. This probe measures whether batching the 8
-products into ONE conv restores lane occupancy:
+On the previous accelerator the stacked rank-8 conv ran at 0.64x the block
+path at C=64, each of the 8 product convs being only 64 channels wide. This
+probe measures whether batching the 8 products into ONE conv helps:
 
 * sep8    — 8 separate convs (the current stacked8 formulation)
 * fgrp8   — one conv with feature_group_count=8: x combos packed to
@@ -15,7 +14,7 @@ products into ONE conv restores lane occupancy:
             FLOPs, full 4C lanes) — the incumbent below 128
 
 Each arm includes the recombination to 4 components so end effects match.
-Run on the real TPU: python benchmarks/probe_grouped.py [--c 64] [--grad]
+Usage: python benchmarks/probe_grouped.py [--c 64] [--grad]
 """
 
 import argparse
@@ -41,11 +40,9 @@ def main():
     import jax.numpy as jnp
     from jax import lax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/qasr_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from qasr.ops.quaternion import O8, U8, V8
     from qasr.ops.qlinalg import qconv

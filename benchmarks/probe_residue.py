@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Itemize the flagship (QCNN-256, B16 T256) train step's non-conv residue
-(round-5 verdict task: the ~12 ms between the 9-layer conv tower and the
-full step was never broken down).
+"""Itemize the flagship (QCNN-256, B16 T256) train step's non-conv residue:
+the time between the conv tower and the full step.
 
 Measures independent component arms with the difference-quotient harness:
 the full step, a dropout-free step, an Adam-update-only chain at flagship
 parameter shapes, a CTC-only chain at flagship logit shapes, and the dense
-stack op-level. Prints the breakdown table for docs/performance.md.
+stack op-level. Prints the breakdown table.
 
   python benchmarks/probe_residue.py
 """
@@ -25,11 +24,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/qasr_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from bench import _Arm, _make_batch
     from qasr.configs import get_config
@@ -117,10 +114,6 @@ def main():
     print(f"  dropout (A/B):       {(full-times['no_dropout'])*1e3:7.2f}")
     print(f"  adam update:         {times['adam_only']*1e3:7.2f}")
     print(f"  ctc loss fwd+bwd:    {times['ctc_only']*1e3:7.2f}")
-    print(
-        "  (conv tower 82.5 ms and dense stack ~1.6 ms are measured in "
-        "probe_chain.py / probe_dense arms — see docs/performance.md)"
-    )
 
 
 if __name__ == "__main__":

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Quaternion-conv roofline report (BASELINE.json kernel metric).
 
-Measures achieved FLOP/s of the quaternion conv against chip peak and against
-the explicitly 4x-expanded real conv (the reference's per-step computation,
-SURVEY.md §3.2), for the XLA block path and the Pallas kernel.
+Measures achieved FLOP/s of the quaternion conv against the device's peak
+(qasr.utils.profiling.DEVICE_PEAKS) and against the explicitly 4x-expanded
+real conv (the reference's per-step computation, SURVEY.md §3.2).
 
-Usage: python benchmarks/roofline.py [--pallas] [--cin 64] [--cout 64]
+Usage: python benchmarks/roofline.py [--variant block] [--cin 64] [--cout 64]
 """
 
 import argparse
@@ -24,13 +24,14 @@ def main():
     ap.add_argument("--cin", type=int, default=64)
     ap.add_argument("--cout", type=int, default=64)
     ap.add_argument("--dtype", default="bfloat16")
-    ap.add_argument("--chip", default="v5e")
-    ap.add_argument("--pallas", action="store_true")
     ap.add_argument("--variant", default="block", choices=["block", "fast", "fast10"])
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
+    from qasr.utils.compile_cache import enable_compile_cache
     from qasr.utils.profiling import conv_roofline
+
+    enable_compile_cache()
 
     out = conv_roofline(
         batch=args.batch,
@@ -39,8 +40,6 @@ def main():
         cin=args.cin,
         cout=args.cout,
         dtype=args.dtype,
-        chip=args.chip,
-        use_pallas=args.pallas,
         variant=args.variant,
         repeats=args.repeats,
     )

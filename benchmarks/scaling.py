@@ -3,8 +3,8 @@
 ">= 80% audio-seconds/s scaling efficiency from 1 chip -> 1 host -> N hosts").
 
 Weak-scales the flagship train step over growing data-parallel submeshes of
-whatever devices exist (a real slice in production; the 8-device CPU mesh in
-CI — wall-clock there checks the logic, not the ICI) and reports
+whatever devices exist (the cards of a host; the 8-device CPU mesh in CI —
+wall-clock there checks the logic, not the interconnect) and reports
 audio-s/s/chip per mesh size plus efficiency vs 1 device.
 
 Usage:
@@ -72,11 +72,9 @@ def main():
     if args.cpu_devices:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", args.cpu_devices)
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/qasr_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from bench import _make_batch
     from qasr.configs import get_config

@@ -2,8 +2,9 @@
 """Compare quaternion compute-path variants on a full flagship train step.
 
 Times the timit_qcnn training step (fwd+bwd+Adam) for each Hamilton-product
-implementation — XLA block (reference strategy), XLA 10-mult "fast", Pallas
-im2col/fused — plus the equal-feature-map real CNN, using bench.py's
+implementation — block (reference strategy), the 10- and 8-product
+schemes, packed and stacked — plus the equal-feature-map real CNN, using
+bench.py's
 difference-quotient harness. Use this to pick the preset's default path on
 real hardware.
 
@@ -27,17 +28,13 @@ def main():
     ap.add_argument(
         "--arms",
         default="auto,block,real_cnn",
-        help="comma list from: auto,block,fast,fast10,pallas,real_cnn",
+        help="comma list of arm names (see `overrides` below)",
     )
     args = ap.parse_args()
 
-    import jax
+    from qasr.utils.compile_cache import enable_compile_cache
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/qasr_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
 
     from bench import _Arm, _make_batch, bench_arms
     from qasr.configs import get_config
@@ -51,12 +48,6 @@ def main():
         "stacked": {"model.op_variant": "stacked"},  # XLA 10-product stacked
         "stacked8": {"model.op_variant": "stacked8"},  # XLA rank-8 stacked
         "stacked8g": {"model.op_variant": "stacked8g"},  # rank-8, one grouped conv
-        "fused": {"model.op_variant": "fused"},      # Pallas qconv_ft chain
-        "fused8": {"model.op_variant": "fused8"},    # Pallas rank-8 chain
-        # chain-resident Pallas kernel: pad once, bias+PReLU fused, margins
-        # re-zeroed in-kernel (qconv_chain.py)
-        "fusedchain": {"model.op_variant": "fusedchain"},
-        "fusedchain8": {"model.op_variant": "fusedchain8"},
         "legacy_auto": {"model.op_variant": "legacy_auto"},  # pre-stacked auto
         "block": {"model.op_variant": "block"},
         "fast": {"model.op_variant": "fast"},
@@ -66,20 +57,14 @@ def main():
         # first dense consumes the stacked conv output (no exit transpose),
         # rank-8 at K = F*C; remaining dense layers stay on the block GEMM
         "dense_fast8_st": {"model.dense_variant": "fast8_stacked"},
-        # rank-8 Pallas GEMM with in-VMEM combo formation (qgemm8.py)
-        "dense_pallas8": {"model.dense_variant": "pallas8"},
-        "pallas": {"model.use_pallas": True},
         "real_cnn": {"model.arch": "real_cnn"},
         # config-4 (qlstm preset) arms: equal-real-width LSTM ablation and
         # the projection-path A/B (with a qlstm preset, "auto" = rank-8
-        # input + rank-8 recurrent = the measured best; "fast8" = rank-8
-        # input only; "block" = all-block)
+        # recurrent, input projection by M = B*T; "fast8" = rank-8 input
+        # only; "block" = all-block)
         "real_lstm": {"model.arch": "real_lstm"},
         "fast8_recurrent": {"model.op_variant": "fast8_recurrent"},  # == auto
         "qlstm_fast8_input": {"model.op_variant": "fast8"},
-        # scan-resident Pallas recurrence: rank-8 weights VMEM-resident
-        # across all T steps (qasr/ops/pallas/qlstm_scan.py)
-        "qlstm_pallas8": {"model.op_variant": "pallas8"},
     }
     arms = {}
     for name in args.arms.split(","):

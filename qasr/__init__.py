@@ -1,12 +1,12 @@
-"""qasr — TPU-native quaternion-CNN end-to-end speech recognition.
+"""qasr — quaternion-CNN end-to-end speech recognition in JAX.
 
-A brand-new JAX/XLA/Pallas/pjit framework with the capabilities of
+A JAX/XLA framework with the capabilities of
 Orkis-Research/Quaternion-Convolutional-Neural-Networks-for-End-to-End-
 Automatic-Speech-Recognition (Parcollet et al., Interspeech 2018,
 arXiv:1806.07789). See SURVEY.md for the reference analysis this is built to.
 
 The symbols below are the user-facing surface, re-exported lazily so that
-`import qasr` costs nothing until a symbol is touched (jax/flax imports are
+`import qasr` costs nothing until a symbol is touched (the jax import is
 the expensive part).
 """
 
@@ -26,10 +26,8 @@ _API = {
     "qconv_fast10": "qasr.ops.qlinalg",
     "qdense": "qasr.ops.qlinalg",
     "qdense_fast8": "qasr.ops.qlinalg",
-    "qconv_fast8_stacked": "qasr.ops.pallas.qconv_ft",
-    "qconv_fast10_stacked": "qasr.ops.pallas.qconv_ft",
-    "qconv2d_ft_stacked": "qasr.ops.pallas.qconv_ft",
-    "qconv2d_ft8_stacked": "qasr.ops.pallas.qconv_ft",
+    "qconv_fast8_stacked": "qasr.ops.qlinalg",
+    "qconv_fast10_stacked": "qasr.ops.qlinalg",
     "tf_packed_to_stacked": "qasr.models.layers",
     "stacked_to_tf_packed": "qasr.models.layers",
     "hamilton_product": "qasr.ops.quaternion",

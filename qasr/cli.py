@@ -14,7 +14,6 @@ Presets are the BASELINE.json configs plus the paper's feature-map sweep
 from __future__ import annotations
 
 import argparse
-import os
 
 
 def main(argv=None):
@@ -57,16 +56,10 @@ def main(argv=None):
     from qasr.train import build_dataset, evaluate, make_eval_step, train
     from qasr.train.checkpoint import CheckpointManager
     from qasr.train.state import create_train_state
+    from qasr.utils.compile_cache import enable_compile_cache
     import jax
 
-    try:  # persistent compile cache: reruns skip the (slow) XLA compiles
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.environ.get("QASR_COMPILE_CACHE", "/tmp/qasr_jax_cache"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
 
     if args.eval_only:
         from qasr.data.batching import epoch_iterator
@@ -76,7 +69,7 @@ def main(argv=None):
         state = create_train_state(cfg, jax.random.PRNGKey(0), batch["features"])
         # read-only consumer: never clobber the training run's config.json
         ckpt = CheckpointManager(cfg, write_config=False)
-        # best.json may point at an Orbax-GC'd step; fall back to the latest
+        # best.json may point at a garbage-collected step; fall back to the latest
         # surviving one (and compare against None: step 0 is legitimate)
         best = ckpt.best_step()
         step = best if best is not None and best in ckpt.all_steps() else ckpt.latest_step()
@@ -93,7 +86,7 @@ def main(argv=None):
 def transcribe_main(argv=None):
     """``qasr-transcribe``: checkpoint -> transcriptions for audio files.
 
-    qasr-transcribe --ckpt /tmp/qasr_ckpt [--beam] [--fold] [--step N] f1.wav ...
+    qasr-transcribe --ckpt checkpoints [--beam] [--fold] [--step N] f1.wav ...
     """
     ap = argparse.ArgumentParser(description=transcribe_main.__doc__)
     ap.add_argument("--ckpt", required=True, help="training checkpoint dir")

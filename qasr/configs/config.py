@@ -29,15 +29,14 @@ class ModelConfig:
     lstm_layers: int = 0
     bidirectional: bool = True
     compute_dtype: str = "float32"  # float32 | bfloat16
-    use_pallas: bool = False
-    # conv path: auto (= measured best: rank-8 stacked chain) | stacked |
-    # stacked8 | stacked8g (grouped single-dispatch) | fused | fused8 |
-    # fusedchain | fusedchain8 (chain-resident Pallas) | legacy_auto |
-    # block | fast | fast10. For arch=qlstm: auto (rank-8 input+recurrent)
-    # | fast8 (rank-8 input only) | block | fast8_recurrent (== auto).
+    # conv path: auto (rank-8 stacked chain for fat layers) | stacked |
+    # stacked8 | stacked8g (grouped single-dispatch) | legacy_auto | block |
+    # fast | fast10. For arch=qlstm: auto (rank-8 recurrent, input
+    # projection by M = B*T) | fast8 (rank-8 input only) | block |
+    # fast8_recurrent (== auto).
     op_variant: str = "auto"
-    # dense path: auto (= measured best: block) | block | fast | fast8 |
-    # fast8_stacked (first dense consumes the stacked conv output) | pallas
+    # dense path: auto (= block) | block | fast | fast8 | fast8_stacked
+    # (first dense consumes the stacked conv output)
     dense_variant: str = "auto"
 
 
@@ -67,7 +66,7 @@ class TrainConfig:
     warmup_steps: int = 100
     eval_every: int = 200
     checkpoint_every: int = 200
-    checkpoint_dir: str = "/tmp/qasr_ckpt"
+    checkpoint_dir: str = "checkpoints"  # relative to the working dir
     keep_checkpoints: int = 3
     log_every: int = 20
     remat_convs: bool = False      # jax.checkpoint over conv stack
@@ -77,7 +76,7 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh: data axis for DP over ICI, model axis for TP sharding of
+    """Device mesh: data axis for DP, model axis for TP sharding of
     quaternion output channels (SURVEY.md §2c P1/P2).
 
     ``data_axis == -1`` means "all devices remaining after the model axis"
@@ -94,8 +93,8 @@ class MeshConfig:
 class DecodeConfig:
     blank_id: int = 0
     beam_width: int = 16
-    # emission-pruning threshold for the prefix beam (nats below the frame
-    # max); None = no pruning. Scoped to presets, NOT defaulted globally: a
+    # emission-pruning threshold for the prefix beam: an absolute frame
+    # log-prob, tokens below it never extend a prefix; None = no pruning. Scoped to presets, NOT defaulted globally: a
     # new non-TIMIT config must not silently inherit TIMIT's protocol
     # threshold (round-4 verdict). The TIMIT presets set -20.0, which is
     # parity-tested hypothesis-identical to the unpruned beam at V=62.
@@ -282,9 +281,7 @@ PRESETS: dict[str, Config] = {
             vocab=32,
             compute_dtype="bfloat16",
             # op_variant="auto" = the rank-8 stacked F-major conv chain
-            # for the fat layers (measured 1.61x the reference-strategy
-            # real CNN on the flagship; docs/performance.md), XLA block for
-            # the thin pre-pool layers
+            # for the fat layers, block conv for the thin pre-pool layers
         ),
         data=DataConfig(
             dataset="librispeech", max_label_len=512,
@@ -293,11 +290,9 @@ PRESETS: dict[str, Config] = {
             # file: featurize on demand (streaming mode)
             cache_features=False,
         ),
-        # remat_convs stays False: the per-chip envelope at T=2048 is B=8
-        # without remat (8.8 GB of 16) and the DPxTP preset mesh lands at
-        # ~B8-equivalent per chip; see tools/memory_envelope.py and
-        # docs/performance.md ("config-5 memory envelope"). Flip remat on
-        # for single-chip runs above B8 at T=2048 (14.4 GB at B16).
+        # remat_convs stays False; whether a card needs it at a given B and
+        # T is what tools/memory_envelope.py reports against the device's
+        # own memory limit.
         train=TrainConfig(num_steps=500000, warmup_steps=5000),
         mesh=MeshConfig(data_axis=-1, model_axis=4),
     ),

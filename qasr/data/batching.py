@@ -2,7 +2,7 @@
 
 Reference behavior: padded batches fed through Keras `fit_generator` with
 explicit input/label lengths for CTC (SURVEY.md §1 L1, §5 "Long-context").
-TPU-first discipline: utterances are bucketed to a small set of power-of-2
+Static-shape discipline: utterances are bucketed to a small set of power-of-2
 frame ceilings so jit recompiles are bounded (SURVEY.md §7 hard part (e)),
 and every batch has static shapes ``[B, T_bucket, F, 4]`` / ``[B, L_max]``.
 """

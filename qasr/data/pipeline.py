@@ -1,7 +1,7 @@
 """Corpus -> on-device quaternion features -> cached or streamed examples.
 
 The reference preprocesses TIMIT offline into pickled numpy features
-(SURVEY.md §1 L1, §3.5). TPU-first redesign: waveforms are featurized by the
+(SURVEY.md §1 L1, §3.5). Here waveforms are featurized by the
 jitted JAX front-end (qasr.features) in large padded batches on the
 accelerator, normalized per utterance, then either
 

@@ -2,7 +2,7 @@
 
 Capability parity: the reference decodes with the backend's beam search
 (`K.ctc_decode(greedy=False, beam_width=W)`, a TF CPU op; SURVEY.md §2a C9,
-§3.4). Here the search is a TPU-native `lax.scan` over time with static
+§3.4). Here the search is a `lax.scan` over time with static
 shapes throughout, so it jits, vmaps over the batch, and runs on device.
 
 Per frame, W stay-candidates (prefix unchanged: blank emission + collapsed
@@ -11,7 +11,7 @@ prefix-merge problem (SURVEY.md §7 hard part (c)) has a structural shortcut:
 duplicates can ONLY pair an extend-candidate with a stay-candidate (two
 distinct surviving prefixes can't extend to the same prefix, and stays keep
 distinct prefixes), so merging is a dense [W,V,W] rolling-hash equality
-contraction + masked logsumexp — no per-frame sort, which keeps TPU compile
+contraction + masked logsumexp — no per-frame sort, which keeps compile
 time sane (an argsort/segment-reduce formulation took ~5 min to compile).
 `lax.top_k` then keeps the W best by total probability.
 
@@ -73,8 +73,8 @@ def _beam_search_single(
     prefixes0 = jnp.full((w, max_len), -1, jnp.int32)
     lens0 = jnp.zeros((w,), jnp.int32)
     hashes0 = jnp.uint32(1) + jnp.arange(w, dtype=jnp.uint32) * jnp.uint32(0x9E3779B9)
-    p_b0 = jnp.full((w,), NEG_INF).at[0].set(0.0)
-    p_nb0 = jnp.full((w,), NEG_INF)
+    p_b0 = jnp.full((w,), NEG_INF, logp.dtype).at[0].set(0.0)
+    p_nb0 = jnp.full((w,), NEG_INF, logp.dtype)
 
     tokens = jnp.arange(v, dtype=jnp.int32)
     widx = jnp.arange(w)
@@ -176,7 +176,8 @@ def ctc_beam_search_decode(
     """Batched CTC prefix beam search.
 
     Args:
-      logits: ``[B, T, V]`` unnormalized scores.
+      logits: ``[B, T, V]`` unnormalized scores. The search runs in float32,
+        or in float64 for float64 logits (with x64 enabled).
       logit_lengths: ``[B]`` valid frame counts.
       prune_logp: if set, tokens with frame log-prob below this never extend
         a prefix (``cfg.decode.beam_prune_logp``).
@@ -185,7 +186,8 @@ def ctc_beam_search_decode(
       (sequences ``[B, max_len]`` padded with -1, lengths ``[B]``,
        log-score ``[B]`` of the best prefix).
     """
-    logp = jax.nn.log_softmax(logits.astype(jnp.float32), axis=-1)
+    dtype = jnp.promote_types(logits.dtype, jnp.float32)
+    logp = jax.nn.log_softmax(logits.astype(dtype), axis=-1)
     fn = functools.partial(
         _beam_search_single,
         beam_width=beam_width,

@@ -5,14 +5,15 @@ coefficients per frame offline and stacks the value with its first/second/
 third time-derivatives as the four quaternion components (SURVEY.md §2a C10,
 §3.5; paper arXiv:1806.07789 §4.1; mount empty — no file:line).
 
-TPU-first redesign: everything is jitted XLA so features run on-device in the
-input pipeline (BASELINE.json north star: "mel-filterbank/STFT feature
-extraction runs as a JAX/XLA front-end"):
+Everything is jitted XLA so features run on-device in the input pipeline
+(BASELINE.json north star: "mel-filterbank/STFT feature extraction runs as
+a JAX/XLA front-end"):
 
 * framing via a gather of strided indices,
 * DFT as one GEMM against a precomputed real/imag DFT matrix (GEMM-native
-  NDFT — the MXU does the transform; cf. the MelT pattern, PAPERS.md),
-* mel projection as a second GEMM,
+  NDFT; cf. the MelT pattern, PAPERS.md),
+* mel projection as a second GEMM (both at HIGHEST precision: f32 features,
+  not TF32, on every backend),
 * regression deltas as a depthwise 1-D convolution along time.
 
 Output layout matches the framework's packed quaternion convention
@@ -70,7 +71,7 @@ def mel_filterbank(cfg: FrontendConfig) -> np.ndarray:
 
 def dft_matrices(cfg: FrontendConfig) -> tuple[np.ndarray, np.ndarray]:
     """Real/imag DFT matrices ``[win_length, n_fft//2+1]`` with the Hamming
-    window folded in — the STFT becomes a single GEMM on the MXU."""
+    window folded in — the STFT becomes a single GEMM."""
     n_bins = cfg.n_fft // 2 + 1
     window = np.hamming(cfg.win_length).astype(np.float32)
     n = np.arange(cfg.win_length)[:, None]
@@ -135,10 +136,11 @@ def log_mel_spectrogram(x: jnp.ndarray, cfg: FrontendConfig = FrontendConfig()):
     """``[B, N]`` waveform -> ``[B, T, n_mels]`` log-mel FBANK."""
     frames = frame_signal(x.astype(jnp.float32), cfg)  # [B, T, W]
     dft_re, dft_im = (jnp.asarray(m) for m in dft_matrices(cfg))
-    re = frames @ dft_re  # [B, T, bins] — GEMM on MXU
-    im = frames @ dft_im
+    hi = jax.lax.Precision.HIGHEST
+    re = jnp.matmul(frames, dft_re, precision=hi)  # [B, T, bins]
+    im = jnp.matmul(frames, dft_im, precision=hi)
     power = re * re + im * im
-    mel = power @ jnp.asarray(mel_filterbank(cfg))  # [B, T, n_mels]
+    mel = jnp.matmul(power, jnp.asarray(mel_filterbank(cfg)), precision=hi)
     return jnp.log(jnp.maximum(mel, cfg.log_floor))
 
 

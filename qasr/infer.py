@@ -42,7 +42,7 @@ class Transcriber:
 
     Args:
       checkpoint_dir: directory written by training (contains `config.json`
-        and Orbax step dirs). The best-dev-PER step is used when a `best.json`
+        and numbered step dirs). The best-dev-PER step is used when a `best.json`
         pointer exists, else the latest step; pass ``step`` to pin one.
       beam: decode with the jitted prefix beam search (`cfg.decode.beam_width`)
         instead of greedy best-path.
@@ -93,7 +93,7 @@ class Transcriber:
                 f"no checkpoint steps in {self.cfg.train.checkpoint_dir!r}"
             )
         if step is None:
-            # best-dev-PER step when it still exists; Orbax's max_to_keep GC
+            # best-dev-PER step when it still exists; keep_checkpoints GC
             # may have deleted it (best.json is only a pointer), in which
             # case fall back to the latest surviving step.
             best = ckpt.best_step()

@@ -1,4 +1,4 @@
-"""Flax modules wrapping the quaternion ops.
+"""Modules wrapping the quaternion ops.
 
 Capability parity with the reference's Keras layer library (SURVEY.md §2a
 C1/C2/C4/C5: `QuaternionConv{1D,2D}`, `QuaternionDense`, split PReLU
@@ -10,24 +10,28 @@ quaternion output-channel dim while keeping the component structure intact.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from qasr import nn
 from qasr.ops.initializers import quaternion_initializer
 from qasr.ops.qlinalg import (
+    pack_to_stacked,
     qconv,
     qconv_fast,
     qconv_fast8,
+    qconv_fast8_grouped,
+    qconv_fast8_stacked,
     qconv_fast10,
+    qconv_fast10_stacked,
     qdense,
     qdense_fast,
     qdense_fast8,
+    qdense_fast8_from_stacked,
+    stacked_to_pack,
 )
-from qasr.ops import pallas as qpallas
-from qasr.ops.pallas import qconv_ft
 from qasr.ops.quaternion import split_components
 
 
@@ -44,19 +48,18 @@ def flatten_quaternion(x: jnp.ndarray) -> jnp.ndarray:
 def tf_packed_to_stacked(x: jnp.ndarray) -> jnp.ndarray:
     """[B, T, F, 4C] packed -> [B, 4, F, T, C] component-stacked F-major.
 
-    The stacked layout is the conv-chain steady state (docs/performance.md):
-    component slices are leading-dim indexes and frequency taps are free row
-    slices, so neither XLA nor the Pallas kernel pays packed-layout reshapes.
-    One transpose at conv-stack entry; its inverse at exit. Defined in terms
-    of the op-level converters in qconv_ft so the layout contract lives in
-    one place.
+    The stacked layout is the conv-chain steady state: component slices are
+    leading-dim indexes, so the per-product convs pay no packed-layout
+    reshapes. One transpose at conv-stack entry; its inverse at exit.
+    Defined in terms of the op-level converters in qlinalg so the layout
+    contract lives in one place.
     """
-    return qconv_ft.pack_to_stacked(jnp.swapaxes(x, 1, 2))
+    return pack_to_stacked(jnp.swapaxes(x, 1, 2))
 
 
 def stacked_to_tf_packed(x: jnp.ndarray) -> jnp.ndarray:
     """[B, 4, F, T, C] stacked -> [B, T, F, 4C] packed."""
-    return jnp.swapaxes(qconv_ft.stacked_to_pack(x), 1, 2)
+    return jnp.swapaxes(stacked_to_pack(x), 1, 2)
 
 
 class QConv(nn.Module):
@@ -72,25 +75,14 @@ class QConv(nn.Module):
     use_bias: bool = True
     criterion: str = "glorot"
     dtype: jnp.dtype | None = None  # compute dtype (e.g. bf16); params f32
-    use_pallas: bool = False
-    # auto | block | fast | fast10 | legacy_auto | stacked | stacked8 |
-    # fused | fused8 (stacked* variants require layout="stacked_ft") |
-    # fusedchain | fusedchain8 (layout="padded_ft": chain-resident kernel)
+    # auto | block | fast | fast10 | fast8 | legacy_auto | stacked |
+    # stacked8 | stacked8g (stacked* variants require layout="stacked_ft")
     variant: str = "auto"
-    # btfc (packed [B,T,F,4C]) | stacked_ft ([B,4,F,T,C]) |
-    # padded_ft (the qconv_chain margin-padded buffer)
+    # btfc (packed [B,T,F,4C]) | stacked_ft ([B,4,F,T,C])
     layout: str = "btfc"
 
     @nn.compact
-    def __call__(
-        self,
-        x: jnp.ndarray,
-        *,
-        prologue_alpha: jnp.ndarray | None = None,
-        t_valid: int | None = None,
-    ) -> jnp.ndarray:
-        if self.layout == "padded_ft":
-            return self._call_padded(x, prologue_alpha, t_valid)
+    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         if self.layout == "stacked_ft":
             return self._call_stacked(x)
         cin4 = x.shape[-1]
@@ -105,52 +97,31 @@ class QConv(nn.Module):
         dtype = self.dtype or x.dtype
         x = x.astype(dtype)
         impl = self.variant
-        if impl in (
-            "stacked", "fused", "stacked8", "stacked8g", "fused8",
-            "legacy_auto", "fusedchain", "fusedchain8",
-        ):
+        if impl in ("stacked", "stacked8", "stacked8g", "legacy_auto"):
             # stacked-chain variants reaching the packed path (e.g. a thin
             # layer the encoder kept packed), and the pre-stacked routing
-            # kept for A/B ("legacy_auto"), use the measured auto routing
+            # kept for A/B ("legacy_auto"), use the auto routing
             impl = "auto"
         if impl == "auto":
-            # Measured routing (benchmarks/probe_conv.py --grad on v5e): the
-            # 10-product scheme runs each bilinear product as a full real
-            # conv whose MXU output width is `features` (fwd/dW) and `cin`
-            # (dx) — not 4x like the block path — so lanes only fill at
-            # >= 128 quaternion channels; there it wins ~1.3x the full
-            # fwd+bwd step. Below that the one-big-conv block path wins —
-            # and stays winning: round 4 measured the full formulation space
-            # at C=64 (8 separate convs, feature-grouped, batch-grouped;
-            # benchmarks/probe_grouped.py) at 0.32-0.34x the block path,
-            # so the gate is a hardware fact, not a missing optimization
-            # (docs/performance.md).
+            # The 10-product scheme runs each bilinear product as a full real
+            # conv whose output width is `features` (fwd/dW) and `cin` (dx),
+            # not 4x as in the block path, so it only pays at >= 128
+            # quaternion channels; below that one big block conv wins. This
+            # threshold was tuned on the previous accelerator and is a
+            # hypothesis on the GPU until the benchmark measures it.
             impl = "fast10" if min(cin, self.features) >= 128 else "block"
-        # Pallas conv pays off once the im2col contraction dim (cin*kh*kw)
-        # approaches an MXU tile; below that (e.g. the 1-quaternion-channel
-        # input layer) the XLA block path wins.
-        pallas_ok = (
-            self.use_pallas
-            and len(self.kernel_size) == 2
-            and cin * self.kernel_size[0] * self.kernel_size[1] >= 32
+        conv_fn = {
+            "block": qconv,
+            "fast": qconv_fast,
+            "fast10": qconv_fast10,
+            "fast8": qconv_fast8,
+        }[impl]
+        y = conv_fn(
+            x,
+            kernel.astype(dtype),
+            strides=self.strides,
+            padding=self.padding,
         )
-        if pallas_ok:
-            y = qpallas.qconv2d_pallas(
-                x, kernel.astype(dtype), strides=self.strides, padding=self.padding
-            )
-        else:
-            conv_fn = {
-                "block": qconv,
-                "fast": qconv_fast,
-                "fast10": qconv_fast10,
-                "fast8": qconv_fast8,
-            }[impl]
-            y = conv_fn(
-                x,
-                kernel.astype(dtype),
-                strides=self.strides,
-                padding=self.padding,
-            )
         if self.use_bias:
             bias = self.param("bias", nn.initializers.zeros, (4 * self.features,))
             y = y + bias.astype(dtype)
@@ -160,9 +131,7 @@ class QConv(nn.Module):
         """Stacked F-major path: x ``[B, 4, F, T, Cin]`` -> same layout.
 
         Params are identical to the packed path (same names and shapes), so
-        checkpoints are layout-independent. variant="fused" runs the Pallas
-        kernel where supported (bf16, C%128==0, SAME/stride-1); everything
-        else uses the XLA 10-product stacked conv.
+        checkpoints are layout-independent.
         """
         if x.ndim != 5 or x.shape[1] != 4:
             raise ValueError(f"stacked_ft expects [B, 4, F, T, C], got {x.shape}")
@@ -176,84 +145,18 @@ class QConv(nn.Module):
         )
         dtype = self.dtype or x.dtype
         x = x.astype(dtype)
-        rank8 = self.variant.endswith("8")
-        use_fused = self.variant in ("fused", "fused8") and qconv_ft.supported(
-            cin,
-            self.features,
-            self.kernel_size,
-            self.padding,
-            self.strides,
-            dtype=dtype,
-        )
-        if use_fused:
-            fn = (
-                qconv_ft.qconv2d_ft8_stacked
-                if rank8
-                else qconv_ft.qconv2d_ft_stacked
-            )
-            y = fn(x, kernel.astype(dtype))
+        if self.variant == "stacked8g":
+            # rank-8 as ONE feature-grouped conv dispatch
+            fn = qconv_fast8_grouped
+        elif self.variant.endswith("8"):
+            fn = qconv_fast8_stacked
         else:
-            if self.variant == "stacked8g":
-                # rank-8 as ONE feature-grouped conv dispatch (round 4:
-                # measured faster than 8 separate convs at C >= 256)
-                fn = qconv_ft.qconv_fast8_grouped
-            elif rank8:
-                fn = qconv_ft.qconv_fast8_stacked
-            else:
-                fn = qconv_ft.qconv_fast10_stacked
-            y = fn(x, kernel.astype(dtype), padding=self.padding)
+            fn = qconv_fast10_stacked
+        y = fn(x, kernel.astype(dtype), padding=self.padding)
         if self.use_bias:
             bias = self.param("bias", nn.initializers.zeros, (4 * self.features,))
             y = y + bias.astype(dtype).reshape(4, 1, 1, self.features)
         return y
-
-    def _call_padded(
-        self,
-        x: jnp.ndarray,
-        prologue_alpha: jnp.ndarray | None,
-        t_valid: int | None,
-    ) -> jnp.ndarray:
-        """Chain-resident path: x is the qconv_chain margin-padded buffer
-        ``[B, 4, Fp, TB, Cin]``; returns this layer's PRE-activation in the
-        same buffer (bias fused in the kernel epilogue, the previous layer's
-        PReLU fused in the prologue via ``prologue_alpha``). Params are
-        identical to the other layouts — checkpoints stay layout-independent.
-        """
-        from qasr.ops.pallas import qconv_chain
-
-        if t_valid is None:
-            raise ValueError("padded_ft layout requires t_valid")
-        cin = x.shape[-1]
-        kernel = self.param(
-            "kernel",
-            quaternion_initializer(self.criterion),
-            (4, *self.kernel_size, cin, self.features),
-        )
-        dtype = self.dtype or x.dtype
-        x = x.astype(dtype)
-        if not qconv_chain.supported(
-            cin, self.features, self.kernel_size, self.padding, self.strides,
-            dtype=dtype,
-        ):
-            raise ValueError(
-                f"padded_ft layout unsupported for cin={cin} "
-                f"features={self.features} dtype={dtype} — the encoder must "
-                "gate chain entry on qconv_chain.supported"
-            )
-        if self.use_bias:
-            bias = self.param(
-                "bias", nn.initializers.zeros, (4 * self.features,)
-            )
-        else:
-            bias = jnp.zeros((4 * self.features,), jnp.float32)
-        return qconv_chain.chain_layer(
-            x,
-            kernel.astype(dtype),
-            bias.astype(dtype),
-            None if prologue_alpha is None else prologue_alpha.astype(dtype),
-            t_valid=t_valid,
-            scheme="fast8" if self.variant.endswith("8") else "fast10",
-        )
 
 
 class QDense(nn.Module):
@@ -269,17 +172,12 @@ class QDense(nn.Module):
     use_bias: bool = True
     criterion: str = "glorot"
     dtype: jnp.dtype | None = None
-    use_pallas: bool = False
-    # auto | block | fast | fast8 | pallas (legacy 10-prod) | pallas8
-    # (rank-8 in-VMEM-combo GEMM, qgemm8.py)
-    variant: str = "auto"
+    variant: str = "auto"  # auto | block | fast | fast8
     layout: str = "packed"  # packed | stacked_entry
 
     @nn.compact
     def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         if self.layout == "stacked_entry":
-            from qasr.ops.qlinalg import qdense_fast8_from_stacked
-
             if x.ndim != 5 or x.shape[1] != 4:
                 raise ValueError(
                     f"stacked_entry expects [B, 4, F, T, C], got {x.shape}"
@@ -310,33 +208,14 @@ class QDense(nn.Module):
         x = x.astype(dtype)
         impl = self.variant
         if impl == "auto":
-            # "block" wins the full train step on v5e, measured against every
-            # alternative across rounds 1-4 (benchmarks/variants.py on the
-            # QCNN-256 flagship): rank-8 packed dense (fast8) 95.6 ms/step
-            # vs block 94.8 (round 3 — combo materialization eats the FLOP
-            # cut); rank-8 STACKED-ENTRY dense consuming the conv chain's
-            # layout directly (fast8_stacked, no exit transpose) 95.7 vs
-            # 94.4 (round 4 — the packed->[...,4,K] reshape was already
-            # free, so the combo traffic still dominates); 10-product
-            # "fast" 119.6 vs 117.1 and the Pallas qgemm dense (round 1)
-            # lose on dx-path transposes. Route explicitly via variant=
-            # "fast8"/"fast"/"pallas" or dense_variant="fast8_stacked" to
-            # force a path; docs/performance.md has the tables.
+            # The block GEMM won the full train step against the rank-8 and
+            # 10-product denses on the previous accelerator (the combo
+            # traffic ate their FLOP cut); a hypothesis on the GPU until the
+            # benchmark measures it. Route explicitly via variant="fast8" /
+            # "fast" or dense_variant="fast8_stacked" to force a path.
             impl = "block"
-        if self.use_pallas or impl == "pallas":
-            y = qpallas.qdense_pallas(x, kernel.astype(dtype))
-        elif impl == "pallas8":
-            # rank-8 Pallas GEMM with in-VMEM combo formation (zero HBM
-            # combo traffic — the round-4 measured blocker for the XLA
-            # rank-8 dense; qasr/ops/pallas/qgemm8.py)
-            from qasr.ops.pallas.qgemm8 import qdense_pallas8
-
-            y = qdense_pallas8(x, kernel.astype(dtype))
-        else:
-            dense_fn = {"fast": qdense_fast, "fast8": qdense_fast8}.get(
-                impl, qdense
-            )
-            y = dense_fn(x, kernel.astype(dtype))
+        dense_fn = {"fast": qdense_fast, "fast8": qdense_fast8}.get(impl, qdense)
+        y = dense_fn(x, kernel.astype(dtype))
         if self.use_bias:
             bias = self.param("bias", nn.initializers.zeros, (4 * self.features,))
             y = y + bias.astype(dtype)
@@ -347,20 +226,12 @@ class PReLU(nn.Module):
     """Split (component-wise) PReLU: the paper's activation (SURVEY.md C4).
 
     One learnable slope per real channel, as Keras stock PReLU does.
-
-    ``return_slope=True`` declares the (identically shaped) parameter and
-    returns it WITHOUT applying the activation — the chain-resident fused
-    conv path (qconv_chain) applies this layer's slopes inside the next
-    conv kernel's prologue, so the module must expose the param while the
-    elementwise op itself never materializes.
     """
 
     negative_slope_init: float = 0.25
 
     @nn.compact
-    def __call__(
-        self, x: jnp.ndarray, return_slope: bool = False
-    ) -> jnp.ndarray:
+    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
         if x.ndim == 5 and x.shape[1] == 4:
             # component-stacked [B, 4, F, T, C]: same per-real-channel alpha
             # as the packed path (param shape [4C] — checkpoint-compatible)
@@ -369,8 +240,6 @@ class PReLU(nn.Module):
                 nn.initializers.constant(self.negative_slope_init),
                 (4 * x.shape[-1],),
             )
-            if return_slope:
-                return alpha
             a = alpha.astype(x.dtype).reshape(4, 1, 1, x.shape[-1])
             return jnp.where(x >= 0, x, a * x)
         alpha = self.param(
@@ -378,8 +247,6 @@ class PReLU(nn.Module):
             nn.initializers.constant(self.negative_slope_init),
             (x.shape[-1],),
         )
-        if return_slope:
-            return alpha
         return jnp.where(x >= 0, x, alpha.astype(x.dtype) * x)
 
 
@@ -408,7 +275,7 @@ class QBatchNorm(nn.Module):
     covariance is whitened with an inverse-Cholesky factor, then an affine
     transform with a learnable symmetric 4x4 gamma (init diag 1/2, so the
     whitened unit-variance components recombine to overall unit variance) and
-    a 4-vector beta is applied. Running stats follow flax's `batch_stats`
+    a 4-vector beta is applied. Running stats live in the `batch_stats`
     collection.
     """
 
@@ -418,8 +285,6 @@ class QBatchNorm(nn.Module):
 
     @nn.compact
     def __call__(self, x: jnp.ndarray, use_running_average: bool | None = None):
-        import jax
-
         use_ra = nn.merge_param(
             "use_running_average", self.use_running_average, use_running_average
         )

@@ -16,9 +16,9 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from qasr import nn
 from qasr.models.layers import (
     PReLU,
     QConv,
@@ -39,55 +39,39 @@ def quaternion_conv_tower(
     dropout_rate: float,
     conv_dropout: bool,
     dtype,
-    use_pallas: bool,
     variant: str,
     train: bool,
 ) -> tuple[jnp.ndarray, bool]:
-    """The shared quaternion conv tower with the measured-best routing.
+    """The shared quaternion conv tower with its layer routing.
 
-    Encoder-agnostic (round-5: used by both QCNNEncoder and QLSTMEncoder so
-    the stacked-chain routing applies wherever fat conv layers appear, not
-    just the QCNN). MUST be called from inside the encoder's ``@nn.compact``
-    ``__call__`` — the QConv/PReLU submodules bind to the caller's scope
-    under the names ``qconv_i`` / ``conv_prelu_i``, keeping checkpoints
-    compatible across encoders and layout variants.
+    Encoder-agnostic: used by both QCNNEncoder and QLSTMEncoder so the
+    stacked-chain routing applies wherever fat conv layers appear. MUST be
+    called from inside the encoder's ``@nn.compact`` ``__call__`` — the
+    QConv/PReLU submodules bind to the caller's scope under the names
+    ``qconv_i`` / ``conv_prelu_i``, keeping checkpoints compatible across
+    encoders and layout variants.
 
-    Routing (docs/performance.md): fat layers (>= 128 quaternion channels
-    in AND out) run in the component-stacked F-major layout — entered even
-    for a SINGLE qualifying layer (measured: one-layer stacked round trip
-    1.79 ms vs best packed 2.09 at 128->128 B8 T512 F13 fwd+bwd, round 5)
-    — with the rank-8 scheme; thin layers keep the per-layer packed
-    routing. Returns ``(x, in_stacked)``; if ``in_stacked`` the result is
-    still ``[B, 4, F, T, C]`` and the caller owns the exit transpose (or a
-    stacked-entry consumer).
+    Routing: fat layers (>= 128 quaternion channels in AND out) run in the
+    component-stacked F-major layout, entered even for a single qualifying
+    layer, with the rank-8 scheme; thin layers keep the per-layer packed
+    routing. Both rules were tuned on the previous accelerator and are
+    hypotheses on the GPU until the benchmark measures them. Returns
+    ``(x, in_stacked)``; if ``in_stacked`` the result is still ``[B, 4, F,
+    T, C]`` and the caller owns the exit transpose (or a stacked-entry
+    consumer).
     """
     chain_variant = {
         "auto": "stacked8",
         "stacked": "stacked",
         "stacked8": "stacked8",
         "stacked8g": "stacked8g",    # grouped single-dispatch rank-8
-        "fused": "fused",
-        "fused8": "fused8",
-        "fusedchain": "stacked",     # non-chain fallback for these
-        "fusedchain8": "stacked8",
     }.get(variant)
-    want_fused_chain = variant in ("fusedchain", "fusedchain8")
-    if use_pallas:
-        # legacy knob selecting the im2col Pallas conv (QConv packed
-        # path); honor it rather than silently rerouting those layers
-        # into the stacked chain
-        chain_variant = None
-        want_fused_chain = False
     in_stacked = False
-    n_conv = len(conv_features)
-    i = 0
-    while i < n_conv:
-        feats = conv_features[i]
+    for i, feats in enumerate(conv_features):
         cin = (x.shape[-1] if in_stacked else x.shape[-1] // 4)
         if in_stacked and min(cin, feats) < 128:
             # chain exit: a thin layer after fat ones leaves the stacked
-            # layout (per-product MXU lanes below 128 measured 0.64x the
-            # block path — docs/performance.md)
+            # layout
             x = stacked_to_tf_packed(x)
             in_stacked = False
         if (
@@ -97,33 +81,17 @@ def quaternion_conv_tower(
             and len(kernel_size) == 2
             and min(cin, feats) >= 128
         ):
-            if want_fused_chain:
-                end = _fused_chain_end(
-                    i, cin, conv_features, kernel_size, conv_dropout, dtype
-                )
-                if end - i >= 2:  # amortizes entry/exit over >= 2 layers
-                    x = _fused_chain(
-                        x, i, end,
-                        conv_features=conv_features,
-                        kernel_size=kernel_size,
-                        dtype=dtype,
-                        variant=variant,
-                    )
-                    i = end
-                    in_stacked = True
-                    continue
             x = tf_packed_to_stacked(x)
             in_stacked = True
         if in_stacked:
             layer_variant = chain_variant
         else:
-            # thin layers: legacy measured routing (block below 128)
+            # thin layers: per-layer routing (block below 128)
             layer_variant = "auto" if chain_variant else variant
         x = QConv(
             features=feats,
             kernel_size=kernel_size,
             dtype=dtype,
-            use_pallas=use_pallas,
             variant=layer_variant,
             layout="stacked_ft" if in_stacked else "btfc",
             name=f"qconv_{i}",
@@ -139,62 +107,7 @@ def quaternion_conv_tower(
             )
         if conv_dropout:
             x = nn.Dropout(dropout_rate, deterministic=not train)(x)
-        i += 1
     return x, in_stacked
-
-
-def _fused_chain_end(start, cin, conv_features, kernel_size, conv_dropout, dtype):
-    """Largest ``end`` such that layers [start, end) can run in the
-    chain-resident kernel (qconv_chain.supported for every link, no
-    dropout between convs, bf16 compute)."""
-    from qasr.ops.pallas import qconv_chain
-
-    if conv_dropout or dtype != jnp.bfloat16:
-        return start
-    end = start
-    c = cin
-    while end < len(conv_features):
-        feats = conv_features[end]
-        if not qconv_chain.supported(
-            c, feats, kernel_size, "SAME", None, dtype=dtype
-        ):
-            break
-        c = feats
-        end += 1
-    return end
-
-
-def _fused_chain(x, start, end, *, conv_features, kernel_size, dtype, variant):
-    """Run conv layers [start, end) chain-resident: pad once, per-layer
-    fused kernels passing PRE-activations (PReLU fused into the next
-    kernel's prologue), slice once, apply the last PReLU in XLA.
-
-    Param names/shapes match the per-layer path exactly (qconv_i /
-    conv_prelu_i), so checkpoints transfer between variants bit-for-bit.
-    Returns the post-activation STACKED tensor [B, 4, F, T, C].
-    """
-    from qasr.ops.pallas import qconv_chain
-
-    x_st = tf_packed_to_stacked(x)
-    _, _, f, t, _ = x_st.shape
-    kw = kernel_size[1]
-    xp = qconv_chain.chain_entry(x_st.astype(dtype), kw)
-    alpha_prev = None
-    for k in range(start, end):
-        xp = QConv(
-            features=conv_features[k],
-            kernel_size=kernel_size,
-            dtype=dtype,
-            variant=variant,
-            layout="padded_ft",
-            name=f"qconv_{k}",
-        )(xp, prologue_alpha=alpha_prev, t_valid=t)
-        if k < end - 1:
-            alpha_prev = PReLU(name=f"conv_prelu_{k}")(
-                xp, return_slope=True
-            )
-    x_st = qconv_chain.chain_exit(xp, f, t, kw)
-    return PReLU(name=f"conv_prelu_{end - 1}")(x_st)
 
 
 class QCNNEncoder(nn.Module):
@@ -209,7 +122,6 @@ class QCNNEncoder(nn.Module):
     dropout_rate: float = 0.3
     conv_dropout: bool = False
     dtype: jnp.dtype | None = None
-    use_pallas: bool = False
     variant: str = "block"
     dense_variant: str = "auto"
 
@@ -223,12 +135,10 @@ class QCNNEncoder(nn.Module):
     ) -> jnp.ndarray:
         if x.ndim != 4:
             raise ValueError(f"expected [B, T, F, 4*C] input, got {x.shape}")
-        # "stacked"/"fused"/"fusedchain" (and "auto", which resolves to the
-        # measured-best — docs/performance.md) run the fat post-pool conv
-        # layers in the component-stacked F-major layout: one transpose in,
-        # one out, zero per-layer repacking. Thin layers keep the legacy
-        # per-layer routing (block below 128 q-channels). Shared with
-        # QLSTMEncoder via quaternion_conv_tower (round 5).
+        # "stacked*" (and "auto") run the fat post-pool conv layers in the
+        # component-stacked F-major layout: one transpose in, one out, zero
+        # per-layer repacking. Thin layers keep the per-layer routing (block
+        # below 128 q-channels). Shared with QLSTMEncoder.
         x, in_stacked = quaternion_conv_tower(
             x,
             conv_features=self.conv_features,
@@ -238,7 +148,6 @@ class QCNNEncoder(nn.Module):
             dropout_rate=self.dropout_rate,
             conv_dropout=self.conv_dropout,
             dtype=self.dtype,
-            use_pallas=self.use_pallas,
             variant=self.variant,
             train=train,
         )
@@ -271,7 +180,6 @@ class QCNNEncoder(nn.Module):
             x = QDense(
                 features=feats,
                 dtype=self.dtype,
-                use_pallas=self.use_pallas,
                 variant="auto" if self.dense_variant == "fast8_stacked"
                 else self.dense_variant,
                 name=f"qdense_{i}",

@@ -6,24 +6,27 @@ arXiv:1811.02566, PAPERS.md; SURVEY.md §7 stage 8). Gate projections are
 Hamilton-product quaternion dense ops; gate nonlinearities and the cell/hidden
 elementwise products are *split* (component-wise), per the paper.
 
-TPU-first structure: the input projections for all timesteps run as one big
+Structure: the input projections for all timesteps run as one big
 quaternion GEMM outside the recurrence; the recurrent weights expand to the
-block form once outside the scan; `lax.scan` carries only the hidden matmul +
-pointwise cell update. Bidirectional runs BOTH directions in one fused scan
-(direction axis of 2, backward stream time-flipped) — half the sequential
-scan latency and double the MXU row count per step. Optional ``lengths``
-freeze the state past each utterance's last frame so padding never
-contaminates either direction.
+block (or rank-8 combo) form once outside the scan; `lax.scan` carries only
+the hidden matmul + pointwise cell update. One recurrence,
+`lstm_recurrence`, serves both layers through a direction axis:
+bidirectional runs BOTH directions in one fused scan (direction axis of 2,
+backward stream time-flipped) — half the sequential scan steps and double
+the GEMM row count per step. Optional
+``lengths`` freeze the state past each utterance's last frame so padding
+never contaminates either direction. `qbilstm_reference` is the plain
+float32 twin that tests and chip_smoke.py check the fused scan against.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from qasr import nn
 from qasr.models.layers import PReLU, QDense, flatten_quaternion
 from qasr.ops.initializers import quaternion_initializer
 from qasr.ops.qlinalg import qdense, qdense_fast8
@@ -50,21 +53,15 @@ def qchannel_concat(parts: Sequence[jnp.ndarray]) -> jnp.ndarray:
 
 
 def _input_proj_fn(name: str, rows: int = 0):
-    """Pre-scan gate-projection op: auto | block | fast8 | pallas8 (rank-8
-    Pallas GEMM with in-VMEM combo formation, qasr/ops/pallas/qgemm8.py).
+    """Pre-scan gate-projection op: auto | block | fast8.
 
-    "auto" picks by the GEMM's row count M = B*T (measured on the v5e,
-    docs/performance.md round 5): the rank-8 schemes pay combo traffic
-    proportional to M*K while the block path pays a fixed 2x weight read +
-    2x MXU FLOPs — at M = 4096 all three arms measure within noise
-    (6.2-6.4 ms/layer) but by M = 16384 (the config-4 preset batch) block
-    wins 1.23x (31.2 vs 38.4 ms/layer). Crossover set at M >= 8192."""
+    "auto" picks by the GEMM's row count M = B*T: the rank-8 scheme pays
+    combo traffic proportional to M*K while the block path pays a fixed 2x
+    weight read and 2x FLOPs, so block wins at large M. The M >= 8192
+    crossover was tuned on the previous accelerator and is a hypothesis on
+    the GPU until the benchmark measures it."""
     if name == "auto":
         name = "block" if rows >= 8192 else "fast8"
-    if name == "pallas8":
-        from qasr.ops.pallas.qgemm8 import qdense_pallas8
-
-        return qdense_pallas8
     return qdense_fast8 if name == "fast8" else qdense
 
 
@@ -111,11 +108,6 @@ class QLSTMLayer(nn.Module):
 
     @nn.compact
     def __call__(self, x: jnp.ndarray, lengths: jnp.ndarray | None = None) -> jnp.ndarray:
-        if self.recurrent == "pallas8":
-            raise ValueError(
-                "recurrent='pallas8' is bidirectional-only (QBiLSTM); the "
-                "unidirectional layer would silently fall back otherwise"
-            )
         b, t, cin4 = x.shape
         cin = cin4 // 4
         dtype = self.dtype or x.dtype
@@ -123,52 +115,83 @@ class QLSTMLayer(nn.Module):
         wx, wh, bias = QLSTMCellParams(cin, self.hidden, name="cell")()
         wx, bias = wx.astype(dtype), bias.astype(dtype)
 
-        # all-timestep input projection: one MXU GEMM (outside the scan);
-        # the recurrent weights expand ONCE here — never inside the scan
-        # (XLA does not reliably hoist the expansion out of the loop body).
+        # all-timestep input projection: one GEMM (outside the scan)
         in_proj = _input_proj_fn(self.input_proj, b * t)
-        xz = in_proj(x.reshape(b * t, cin4), wx).reshape(b, t, -1) + bias
-        if self.recurrent == "fast8":
-            wc8 = jnp.einsum(
-                "akn,pa->pkn", wh, jnp.asarray(U8, wh.dtype)
-            ).astype(dtype)  # [8, H, 4H]
+        z = in_proj(x.reshape(b * t, cin4), wx).reshape(b, t, -1) + bias
+        return lstm_recurrence(
+            z[None], wh[None], lengths, reverse=(self.reverse,),
+            recurrent=self.recurrent, dtype=dtype,
+        )[0]
+
+
+def lstm_recurrence(z, wh, lengths=None, *, reverse, recurrent="fast8",
+                    dtype=jnp.float32, weight_dtype=jnp.float32):
+    """D directions' recurrence as ONE `lax.scan` (a direction axis of D).
+
+    z: ``[D, B, T, 16H]`` input projections (bias added); wh:
+    ``[D, 4, H, 4H]`` recurrent weights; ``reverse``: one flag per
+    direction, True for a direction that walks time backward (its stream is
+    time-flipped inside the scan). Returns the hidden states
+    ``[D, B, T, 4H]`` in time order. Runs under the name scope
+    ``qlstm_recurrence`` so a profile can attribute its device time.
+
+    The recurrent weights enter the scan in ``weight_dtype`` and are cast to
+    the compute ``dtype`` inside each step, so the backward scan sums their
+    gradient over the T steps in ``weight_dtype``: float32 by default, since
+    a bfloat16 sum's rounding grows with T (~5% relative error at T=512).
+    """
+    d, b, t, _ = z.shape
+    hidden = wh.shape[2]
+    with jax.named_scope("qlstm_recurrence"):
+        # the recurrent weights expand ONCE here, never inside the scan (XLA
+        # does not reliably hoist the expansion out of the loop body)
+        wh = wh.astype(weight_dtype)
+        if recurrent == "fast8":
+            # rank-8 recurrent path: per-direction U-combined weights
+            wc8 = jnp.einsum("dakn,pa->dpkn", wh, jnp.asarray(U8, wh.dtype))
             v8 = jnp.asarray(V8, dtype)
             o8 = jnp.asarray(O8, jnp.float32)
         else:
-            wh_big = hamilton_expand(wh.astype(dtype))  # [4H, 16H]
+            wh_big = jnp.stack([hamilton_expand(w) for w in wh])  # [D, 4H, 16H]
 
-        h0 = jnp.zeros((b, 4 * self.hidden), dtype)
-        c0 = jnp.zeros((b, 4 * self.hidden), dtype)
-        t_iota = jnp.arange(t)
-        if self.reverse:
-            t_iota = t_iota[::-1]
+        # xs: [T, D, B, 16H]; each reversed direction's stream time-flipped
+        xs = jnp.stack([z[i, :, ::-1] if r else z[i] for i, r in enumerate(reverse)])
+        xs = jnp.moveaxis(xs, 2, 0)
+        flipped = jnp.asarray(reverse)[:, None]  # [D, 1]
+        h0 = jnp.zeros((d, b, 4 * hidden), dtype)
+        c0 = jnp.zeros((d, b, 4 * hidden), dtype)
 
         def step(carry, inp):
             h, c = carry
             xz_t, t_idx = inp
-            if self.recurrent == "fast8":
-                hs_ = h.reshape(b, 4, self.hidden)
-                hc = jnp.einsum("bak,pa->bpk", hs_, v8)
+            if recurrent == "fast8":
+                hs_ = h.reshape(d, b, 4, hidden)
+                hc = jnp.einsum("dbak,pa->dbpk", hs_, v8)
                 prods = jnp.einsum(
-                    "bpk,pkn->bpn", hc, wc8,
+                    "dbpk,dpkn->dbpn", hc, wc8.astype(dtype),
                     preferred_element_type=jnp.float32,
                 )
-                proj = jnp.einsum("bpn,qp->bqn", prods, o8).reshape(
-                    b, 16 * self.hidden
+                proj = jnp.einsum("dbpn,qp->dbqn", prods, o8).reshape(
+                    d, b, 16 * hidden
                 ).astype(dtype)
             else:
-                proj = h @ wh_big
-            z = xz_t + proj
-            h_new, c_new = _gate_update(z, c)
+                proj = jax.lax.dot_general(
+                    h,
+                    wh_big.astype(dtype),
+                    dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+                ).astype(dtype)  # [D, B, 16H]
+            h_new, c_new = _gate_update(xz_t + proj, c)
             if lengths is not None:
-                active = (t_idx < lengths)[:, None]
+                # a flipped stream's step t_idx is original frame T-1-t_idx
+                frame = jnp.where(flipped, t - 1 - t_idx, t_idx)  # [D, 1]
+                active = (frame < lengths)[:, :, None]  # [D, B, 1]
                 h_new = jnp.where(active, h_new, h)
                 c_new = jnp.where(active, c_new, c)
             return (h_new, c_new), h_new
 
-        xs = (jnp.moveaxis(xz, 1, 0), t_iota)  # [T, B, .]
-        (_, _), hs = jax.lax.scan(step, (h0, c0), xs, reverse=self.reverse)
-        return jnp.moveaxis(hs, 0, 1)  # [B, T, 4H]
+        (_, _), hs = jax.lax.scan(step, (h0, c0), (xs, jnp.arange(t)), unroll=4)
+        hs = jnp.moveaxis(hs, 0, 2)  # [D, B, T, 4H] in scan order
+        return jnp.stack([hs[i, :, ::-1] if r else hs[i] for i, r in enumerate(reverse)])
 
 
 class QBiLSTM(nn.Module):
@@ -176,24 +199,19 @@ class QBiLSTM(nn.Module):
 
     Both directions run in a single `lax.scan` with a direction axis of 2
     (the backward stream's inputs are time-flipped, its outputs un-flipped):
-    half the sequential scan latency of two scans, and the per-step recurrent
-    matmul doubles its row count — better MXU occupancy at small B. The
-    recurrent projection is a batched dot against the pre-expanded ``[2, 4H,
-    16H]`` weights.
+    half the sequential scan steps of two scans, and the per-step recurrent
+    matmul doubles its row count. The recurrent projection is a batched dot
+    against the pre-expanded ``[2, 4H, 16H]`` weights, or the rank-8 combo
+    weights ``[2, 8, H, 4H]``.
     """
 
     hidden: int
     dtype: jnp.dtype | None = None
-    # input (pre-scan) projection: "fast8" = rank-8 scheme (8/16 the MXU
-    # FLOPs of the expanded GEMM; the M = B*T row count fills the MXU, so
-    # the cut pays — measured, docs/performance.md); "block" = expanded GEMM
+    # input (pre-scan) projection: "fast8" = rank-8 scheme (8/16 the FLOPs
+    # of the expanded GEMM) | "block" = expanded GEMM | "auto" (by M = B*T)
     input_proj: str = "fast8"
     # recurrent projection: "block" (expanded in-scan GEMM) | "fast8"
-    # (rank-8 in-scan einsums — halves the per-step HBM weight re-read) |
-    # "pallas8" (scan-resident Pallas kernel, qasr/ops/pallas/qlstm_scan.py:
-    # the rank-8 weights stay VMEM-resident across ALL T steps, deleting
-    # the per-step weight re-read entirely — the measured config-4
-    # bottleneck, docs/performance.md)
+    # (rank-8 in-scan einsums: half the weight bytes read per step)
     recurrent: str = "block"
 
     @nn.compact
@@ -213,83 +231,48 @@ class QBiLSTM(nn.Module):
         zf = (zf + bf.astype(dtype)).reshape(b, t, -1)
         zb = (zb + bb.astype(dtype)).reshape(b, t, -1)
 
-        if self.recurrent == "pallas8":
-            from qasr.ops.pallas.qlstm_scan import qlstm_scan_fast8
+        hs = lstm_recurrence(
+            jnp.stack([zf, zb]), jnp.stack([whf, whb]), lengths,
+            reverse=(False, True), recurrent=self.recurrent, dtype=dtype,
+        )  # [2, B, T, 4H]
+        return qchannel_concat([hs[0], hs[1]])
 
-            wc8 = jnp.stack(
-                [
-                    jnp.einsum("akn,pa->pkn", whf, jnp.asarray(U8, whf.dtype)),
-                    jnp.einsum("akn,pa->pkn", whb, jnp.asarray(U8, whb.dtype)),
-                ]
-            ).astype(dtype)  # [2, 8, H, 4H]
-            xs = jnp.stack(
-                [jnp.moveaxis(zf, 1, 0), jnp.moveaxis(zb, 1, 0)[::-1]], axis=1
-            )  # [T, 2, B, 16H], backward stream time-flipped
-            hs = qlstm_scan_fast8(xs, wc8, lengths)  # [T, 2, B, 4H]
-            fwd = jnp.moveaxis(hs[:, 0], 0, 1)
-            bwd = jnp.moveaxis(hs[::-1, 1], 0, 1)
-            return qchannel_concat([fwd, bwd])
 
-        if self.recurrent == "fast8":
-            # rank-8 recurrent path: per-direction U-combined weights
-            wc8 = jnp.stack(
-                [
-                    jnp.einsum("akn,pa->pkn", whf, jnp.asarray(U8, whf.dtype)),
-                    jnp.einsum("akn,pa->pkn", whb, jnp.asarray(U8, whb.dtype)),
-                ]
-            ).astype(dtype)  # [2, 8, H, 4H]
-            v8 = jnp.asarray(V8, dtype)
-            o8 = jnp.asarray(O8, jnp.float32)
-        else:
-            wh_big = jnp.stack(
-                [
-                    hamilton_expand(whf.astype(dtype)),
-                    hamilton_expand(whb.astype(dtype)),
-                ]
-            )  # [2, 4H, 16H]
+def qbilstm_reference(params, x, lengths=None):
+    """Plain float32 twin of `QBiLSTM`: each direction its own step-by-step
+    scan with the block-expanded (16-product) recurrent weights, at HIGHEST
+    matmul precision. ``params`` is a QBiLSTM's ``variables["params"]``.
 
-        # xs: [T, 2, B, 16H]; backward stream time-flipped
-        xs = jnp.stack(
-            [jnp.moveaxis(zf, 1, 0), jnp.moveaxis(zb, 1, 0)[::-1]], axis=1
-        )
-        h0 = jnp.zeros((2, b, 4 * self.hidden), dtype)
-        c0 = jnp.zeros((2, b, 4 * self.hidden), dtype)
-        t_iota = jnp.arange(t)
+    The reference for the fused, rank-8, bf16-capable recurrence in tests
+    and in chip_smoke.py.
+    """
+    b, t, _ = x.shape
+    x = x.astype(jnp.float32)
+    if lengths is None:
+        lengths = jnp.full((b,), t, jnp.int32)
+    outs = []
+    with jax.default_matmul_precision("highest"):
+        for cell, reverse in (("fwd_cell", False), ("bwd_cell", True)):
+            p = jax.tree.map(lambda a: a.astype(jnp.float32), params[cell])
+            wh_big = hamilton_expand(p["wh"])  # [4H, 16H]
+            xz = qdense(x, p["wx"]) + p["bias"]
 
-        def step(carry, inp):
-            h, c = carry
-            xz_t, t_idx = inp
-            if self.recurrent == "fast8":
-                hs_ = h.reshape(2, b, 4, self.hidden)
-                hc = jnp.einsum("dbak,pa->dbpk", hs_, v8)
-                prods = jnp.einsum(
-                    "dbpk,dpkn->dbpn", hc, wc8,
-                    preferred_element_type=jnp.float32,
-                )
-                proj = jnp.einsum("dbpn,qp->dbqn", prods, o8).reshape(
-                    2, b, 16 * self.hidden
-                ).astype(dtype)
-            else:
-                proj = jax.lax.dot_general(
-                    h,
-                    wh_big,
-                    dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-                ).astype(dtype)  # [2, B, 16H]
-            h_new, c_new = _gate_update(xz_t + proj, c)
-            if lengths is not None:
-                # dir 0 walks t forward; dir 1 walks the flipped stream, so
-                # its original frame index is T-1-t
-                active = jnp.stack(
-                    [t_idx < lengths, (t - 1 - t_idx) < lengths]
-                )[:, :, None]  # [2, B, 1]
+            def step(carry, inp, wh_big=wh_big):
+                h, c = carry
+                xz_t, t_idx = inp
+                h_new, c_new = _gate_update(xz_t + h @ wh_big, c)
+                active = (t_idx < lengths)[:, None]
                 h_new = jnp.where(active, h_new, h)
                 c_new = jnp.where(active, c_new, c)
-            return (h_new, c_new), h_new
+                return (h_new, c_new), h_new
 
-        (_, _), hs = jax.lax.scan(step, (h0, c0), (xs, t_iota), unroll=4)  # [T, 2, B, 4H]
-        fwd = jnp.moveaxis(hs[:, 0], 0, 1)
-        bwd = jnp.moveaxis(hs[::-1, 1], 0, 1)
-        return qchannel_concat([fwd, bwd])
+            zeros = jnp.zeros((b, wh_big.shape[0]), jnp.float32)
+            _, hs = jax.lax.scan(
+                step, (zeros, zeros), (jnp.moveaxis(xz, 1, 0), jnp.arange(t)),
+                reverse=reverse,
+            )
+            outs.append(jnp.moveaxis(hs, 0, 1))
+    return qchannel_concat(outs)
 
 
 class QLSTMEncoder(nn.Module):
@@ -306,12 +289,10 @@ class QLSTMEncoder(nn.Module):
     pool_size: int = 3
     dropout_rate: float = 0.3
     dtype: jnp.dtype | None = None
-    use_pallas: bool = False
-    input_proj: str = "fast8"   # pre-scan gate projection: fast8 | block | pallas8
-    recurrent: str = "block"    # in-scan hidden projection: block | fast8 | pallas8
-    # conv front-end routing (round 5: shared tower with QCNNEncoder, so
-    # fat layers — e.g. config 4's 128->128 — take the measured-best
-    # stacked rank-8 path instead of per-layer packed routing)
+    input_proj: str = "fast8"   # pre-scan gate projection: auto | fast8 | block
+    recurrent: str = "block"    # in-scan hidden projection: block | fast8
+    # conv front-end routing (the tower shared with QCNNEncoder, so fat
+    # layers — e.g. config 4's 128->128 — take the stacked rank-8 path)
     conv_variant: str = "auto"
 
     @nn.compact
@@ -335,7 +316,6 @@ class QLSTMEncoder(nn.Module):
             dropout_rate=self.dropout_rate,
             conv_dropout=False,
             dtype=self.dtype,
-            use_pallas=self.use_pallas,
             variant=self.conv_variant,
             train=train,
         )
@@ -367,8 +347,7 @@ class QLSTMEncoder(nn.Module):
             x = nn.Dropout(self.dropout_rate, deterministic=not train)(x)
 
         for i, feats in enumerate(self.dense_features):
-            x = QDense(features=feats, dtype=self.dtype, use_pallas=self.use_pallas,
-                       name=f"qdense_{i}")(x)
+            x = QDense(features=feats, dtype=self.dtype, name=f"qdense_{i}")(x)
             x = PReLU(name=f"dense_prelu_{i}")(x)
             x = nn.Dropout(self.dropout_rate, deterministic=not train)(x)
 
@@ -413,13 +392,13 @@ class RealBiLSTM(nn.Module):
         h0 = jnp.zeros((2, b, self.hidden), dtype)
         c0 = jnp.zeros((2, b, self.hidden), dtype)
         t_iota = jnp.arange(t)
-        wh_d = wh.astype(dtype)
+        wh_f32 = wh.astype(jnp.float32)  # cast per step: f32 grad sums
 
         def step(carry, inp):
             h, c = carry
             xz_t, t_idx = inp
             proj = jax.lax.dot_general(
-                h, wh_d, dimension_numbers=(((2,), (1,)), ((0,), (0,)))
+                h, wh_f32.astype(dtype), dimension_numbers=(((2,), (1,)), ((0,), (0,)))
             ).astype(dtype)  # [2, B, 4H]
             zt = xz_t + proj
             i, f, o, g = jnp.split(zt, 4, axis=-1)

@@ -83,21 +83,24 @@ def _load():
             ctypes.POINTER(ctypes.c_int32),
             ctypes.c_int64,
         ]
-        lib.qasr_ctc_beam_decode.restype = None
-        lib.qasr_ctc_beam_decode.argtypes = [
-            ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_int,
-            ctypes.c_float,
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_float),
-        ]
+        for name, real in (("qasr_ctc_beam_decode", ctypes.c_float),
+                           ("qasr_ctc_beam_decode_f64", ctypes.c_double)):
+            fn = getattr(lib, name)
+            fn.restype = None
+            fn.argtypes = [
+                ctypes.POINTER(real),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int,
+                ctypes.c_int,
+                ctypes.c_int,
+                ctypes.c_int,
+                ctypes.c_int,
+                ctypes.c_int,
+                real,
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(real),
+            ]
         _lib = lib
         return lib
 
@@ -137,22 +140,26 @@ def ctc_beam_decode_native(
 
     Args:
       logits: ``[B, T, V]`` raw scores (log-softmax applied internally).
+        The search runs in double for float64 logits, else in float.
       lengths: ``[B]`` valid frame counts.
 
     Returns:
       (sequences ``[B, max_len]`` int32 padded with -1, lengths ``[B]`` int32,
-       best-prefix log-score ``[B]`` float32).
+       best-prefix log-score ``[B]`` in the search's dtype).
     """
     lib = _load()
-    logits = np.ascontiguousarray(logits, dtype=np.float32)
+    f64 = np.asarray(logits).dtype == np.float64
+    dtype, real = (np.float64, ctypes.c_double) if f64 else (np.float32, ctypes.c_float)
+    decode = lib.qasr_ctc_beam_decode_f64 if f64 else lib.qasr_ctc_beam_decode
+    logits = np.ascontiguousarray(logits, dtype=dtype)
     lengths = _as_i32(lengths)
     b, t, v = logits.shape
     assert v < (1 << 20), "vocab must fit the 20-bit candidate key"
     out_seqs = np.empty((b, max_len), np.int32)
     out_lens = np.empty((b,), np.int32)
-    out_scores = np.empty((b,), np.float32)
-    lib.qasr_ctc_beam_decode(
-        logits.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    out_scores = np.empty((b,), dtype)
+    decode(
+        logits.ctypes.data_as(ctypes.POINTER(real)),
         lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         b,
         t,
@@ -160,10 +167,10 @@ def ctc_beam_decode_native(
         beam_width,
         blank_id,
         max_len,
-        ctypes.c_float(-3e38 if prune_logp is None else prune_logp),
+        real(-3e38 if prune_logp is None else prune_logp),
         out_seqs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         out_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        out_scores.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out_scores.ctypes.data_as(ctypes.POINTER(real)),
     )
     return out_seqs, out_lens, out_scores
 

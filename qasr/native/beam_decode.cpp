@@ -10,7 +10,10 @@
 // Within one frame, two distinct parents cannot extend to the same prefix
 // (p1+a == p2+b implies p1==p2, a==b), so the only duplicate pairing is an
 // extend-candidate hitting an existing beam prefix — identical merge
-// structure to the device beam, hence bitwise-comparable hypotheses.
+// structure to the device beam, hence comparable hypotheses. The search runs
+// in float or in double; in double the two decoders agree hypothesis for
+// hypothesis, while in float a near-tie at the beam's edge can round either
+// way and send the two searches apart on flat (untrained) logits.
 
 #include <algorithm>
 #include <cmath>
@@ -22,12 +25,13 @@
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+constexpr double kNegInf = -1e30;
 
-inline float logaddexp(float a, float b) {
+template <typename Real>
+inline Real logaddexp(Real a, Real b) {
   if (a <= kNegInf / 2) return b;
   if (b <= kNegInf / 2) return a;
-  float m = a > b ? a : b;
+  Real m = a > b ? a : b;
   return m + std::log(std::exp(a - m) + std::exp(b - m));
 }
 
@@ -38,28 +42,31 @@ struct TrieNode {
   int32_t len;
 };
 
+template <typename Real>
 struct Hyp {
   int32_t node;  // trie index (-1 = empty prefix)
-  float pb;      // log P(prefix, ending in blank)
-  float pnb;     // log P(prefix, ending in non-blank)
-  float total() const { return logaddexp(pb, pnb); }
+  Real pb;       // log P(prefix, ending in blank)
+  Real pnb;      // log P(prefix, ending in non-blank)
+  Real total() const { return logaddexp(pb, pnb); }
 };
 
-void decode_one(const float* logits, int T, int V, int length, int beam_width,
-                int blank_id, int max_len, float prune_logp, int32_t* out_seq,
-                int32_t* out_len, float* out_score) {
+template <typename Real>
+void decode_one(const Real* logits, int T, int V, int length, int beam_width,
+                int blank_id, int max_len, Real prune_logp, int32_t* out_seq,
+                int32_t* out_len, Real* out_score) {
+  const Real neg_inf = static_cast<Real>(kNegInf);
   std::vector<TrieNode> trie;
   trie.reserve(static_cast<size_t>(beam_width) * (length > 0 ? length : 1));
 
-  std::vector<Hyp> beam{{-1, 0.0f, kNegInf}};
-  std::vector<float> logp(V);
+  std::vector<Hyp<Real>> beam{{-1, Real(0), neg_inf}};
+  std::vector<Real> logp(V);
 
   // Next-step candidates keyed by the trie node of the RESULTING prefix
   // (stay: parent's own node; extend: the interned child node), so an
   // extend-candidate that equals another hypothesis's stay-candidate lands
   // on the same key and their mass merges exactly.
   struct Cand {
-    float pb = kNegInf, pnb = kNegInf;
+    Real pb = static_cast<Real>(kNegInf), pnb = static_cast<Real>(kNegInf);
   };
   std::unordered_map<int32_t, Cand> next;
   std::unordered_map<int64_t, int32_t> child;  // (parent,token) -> trie idx
@@ -76,19 +83,19 @@ void decode_one(const float* logits, int T, int V, int length, int beam_width,
   };
 
   for (int t = 0; t < length && t < T; ++t) {
-    const float* row = logits + static_cast<int64_t>(t) * V;
-    float m = row[0];
+    const Real* row = logits + static_cast<int64_t>(t) * V;
+    Real m = row[0];
     for (int v = 1; v < V; ++v) m = std::max(m, row[v]);
-    float s = 0.0f;
+    Real s = 0;
     for (int v = 0; v < V; ++v) s += std::exp(row[v] - m);
-    float lse = m + std::log(s);
+    Real lse = m + std::log(s);
     for (int v = 0; v < V; ++v) logp[v] = row[v] - lse;
 
     next.clear();
-    for (const Hyp& h : beam) {
+    for (const Hyp<Real>& h : beam) {
       int last = h.node >= 0 ? trie[h.node].token : -1;
       int plen = h.node >= 0 ? trie[h.node].len : 0;
-      float ptot = h.total();
+      Real ptot = h.total();
 
       // stay: blank emission plus collapsed repeat
       Cand& stay = next[h.node];
@@ -103,7 +110,7 @@ void decode_one(const float* logits, int T, int V, int length, int beam_width,
         // low-probability tokens never extend a prefix
         if (logp[v] < prune_logp) continue;
         // after a repeat token, only the blank-ending mass extends
-        float base = (v == last) ? h.pb : ptot;
+        Real base = (v == last) ? h.pb : ptot;
         if (base <= kNegInf / 2) continue;
         Cand& c = next[intern(h.node, v)];
         c.pnb = logaddexp(c.pnb, base + logp[v]);
@@ -111,7 +118,7 @@ void decode_one(const float* logits, int T, int V, int length, int beam_width,
     }
 
     // materialize candidates, keep top beam_width by total probability
-    std::vector<std::pair<float, int32_t>> scored;
+    std::vector<std::pair<Real, int32_t>> scored;
     scored.reserve(next.size());
     for (const auto& kv : next)
       scored.emplace_back(logaddexp(kv.second.pb, kv.second.pnb), kv.first);
@@ -120,7 +127,7 @@ void decode_one(const float* logits, int T, int V, int length, int beam_width,
         scored.begin(), scored.begin() + keep, scored.end(),
         [](const auto& a, const auto& b) { return a.first > b.first; });
 
-    std::vector<Hyp> nbeam;
+    std::vector<Hyp<Real>> nbeam;
     nbeam.reserve(keep);
     for (int i = 0; i < keep; ++i) {
       const Cand& c = next[scored[i].second];
@@ -129,8 +136,8 @@ void decode_one(const float* logits, int T, int V, int length, int beam_width,
     beam.swap(nbeam);
   }
 
-  const Hyp* best = &beam[0];
-  for (const Hyp& h : beam)
+  const Hyp<Real>* best = &beam[0];
+  for (const Hyp<Real>& h : beam)
     if (h.total() > best->total()) best = &h;
 
   int32_t len = best->node >= 0 ? trie[best->node].len : 0;
@@ -145,18 +152,11 @@ void decode_one(const float* logits, int T, int V, int length, int beam_width,
   *out_score = best->total();
 }
 
-}  // namespace
-
-extern "C" {
-
-// logits: [B, T, V] raw (log-softmax applied internally);
-// lengths: [B]; prune_logp: drop extend-candidates whose frame log-prob is
-// below this (pass <= -1e30 to disable); out_seqs: [B, max_len] (-1 padded);
-// out_lens/out_scores: [B].
-void qasr_ctc_beam_decode(const float* logits, const int32_t* lengths, int B,
-                          int T, int V, int beam_width, int blank_id,
-                          int max_len, float prune_logp, int32_t* out_seqs,
-                          int32_t* out_lens, float* out_scores) {
+template <typename Real>
+void decode_batch(const Real* logits, const int32_t* lengths, int B, int T,
+                  int V, int beam_width, int blank_id, int max_len,
+                  Real prune_logp, int32_t* out_seqs, int32_t* out_lens,
+                  Real* out_scores) {
   int n_threads = std::min<int>(
       B, std::max(1u, std::thread::hardware_concurrency()));
   std::vector<std::thread> pool;
@@ -173,6 +173,32 @@ void qasr_ctc_beam_decode(const float* logits, const int32_t* lengths, int B,
     });
   }
   for (auto& th : pool) th.join();
+}
+
+}  // namespace
+
+extern "C" {
+
+// logits: [B, T, V] raw (log-softmax applied internally);
+// lengths: [B]; prune_logp: drop extend-candidates whose frame log-prob is
+// below this (pass <= -1e30 to disable); out_seqs: [B, max_len] (-1 padded);
+// out_lens/out_scores: [B].
+void qasr_ctc_beam_decode(const float* logits, const int32_t* lengths, int B,
+                          int T, int V, int beam_width, int blank_id,
+                          int max_len, float prune_logp, int32_t* out_seqs,
+                          int32_t* out_lens, float* out_scores) {
+  decode_batch(logits, lengths, B, T, V, beam_width, blank_id, max_len,
+               prune_logp, out_seqs, out_lens, out_scores);
+}
+
+// The same search in double.
+void qasr_ctc_beam_decode_f64(const double* logits, const int32_t* lengths,
+                              int B, int T, int V, int beam_width,
+                              int blank_id, int max_len, double prune_logp,
+                              int32_t* out_seqs, int32_t* out_lens,
+                              double* out_scores) {
+  decode_batch(logits, lengths, B, T, V, beam_width, blank_id, max_len,
+               prune_logp, out_seqs, out_lens, out_scores);
 }
 
 }  // extern "C"

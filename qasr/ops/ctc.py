@@ -1,4 +1,4 @@
-"""Native CTC loss — TPU-first redesign of the reference's loss path.
+"""Native CTC loss — a JAX redesign of the reference's loss path.
 
 Capability parity: the reference wraps its backend's native CTC
 (`ctc_batch_cost`, a Theano/TF C++ forward-backward) in a Lambda layer
@@ -62,15 +62,15 @@ def lattice_emissions(logp, z):
     """em[b,t,s] = logp[b,t,z[b,s]] as ONE one-hot einsum before the scan.
 
     A per-step take_along_axis inside the scan lowers to T serialized small
-    gathers (and T scatter-adds in the backward) and dominated the whole train
-    step (~7.5 ms at B16/T256 on v5e); this einsum form is one MXU op forward
-    and one backward (~15x faster end-to-end).
+    gathers (and T scatter-adds in the backward), which dominated the whole
+    train step on the previous accelerator; this einsum form is one matmul
+    forward and one backward.
     """
     v = logp.shape[-1]
     zhot = jax.nn.one_hot(z, v, dtype=logp.dtype)  # [B, S, V]
     return jnp.einsum(
         "btv,bsv->bts", logp, zhot, precision=lax.Precision.HIGHEST
-    )  # [B, T, S]; HIGHEST keeps f32 fidelity on the MXU (negligible FLOPs)
+    )  # [B, T, S]; HIGHEST keeps f32 fidelity (no TF32; negligible FLOPs)
 
 
 def make_alpha_step(can_skip, in_lattice, logit_lengths):
@@ -149,7 +149,7 @@ def ctc_loss(
 
     xs = (jnp.moveaxis(em, 1, 0), jnp.arange(t))
     # unroll: the per-iteration work is small ([B, S] elementwise), so loop
-    # overhead dominates on TPU; unrolling 8 iterations per trip amortizes it
+    # overhead dominates; unrolling 8 iterations per trip amortizes it
     alpha_final, _ = lax.scan(step, alpha_pre(b, s), xs, unroll=8)
     return -loglik_from_alpha(alpha_final, s_valid, label_lengths)
 

@@ -6,7 +6,7 @@ block-structured real kernel and calling the backend's real conv2d/dot once
 (reference: quaternion conv layer `call()` assembling ``cat_kernels_4_quaternion``;
 mount was empty at build time — see SURVEY.md §0/§3.2, provenance [BASELINE][FAMILY]).
 
-This module is the TPU-native redesign of that algebra:
+This module is the JAX redesign of that algebra:
 
 * Packed layout: a quaternion tensor with C quaternion channels is stored as a
   real tensor with trailing dim ``4*C`` in *component-major* order
@@ -16,7 +16,7 @@ This module is the TPU-native redesign of that algebra:
 * Weights are kept as a single stacked array ``W[4, ..., Cin, Cout]`` (never
   pre-expanded in checkpoints); the 4x4 block-structured real matrix is only
   materialized transiently inside jit, where XLA fuses it, or not at all in
-  the Pallas kernels (qasr/ops/pallas/).
+  the reduced-product paths (qasr/ops/qlinalg.py).
 
 Hamilton product convention (y = w ⊗ x, weight acting on the left):
 
@@ -99,9 +99,9 @@ def hamilton_expand(w: jnp.ndarray, conjugate: bool = False) -> jnp.ndarray:
     if w.dtype == jnp.bfloat16:
         # Contraction form: the einsum output is already in block order
         # ([*sp, a, K, b, N]) so no transpose is needed, and its backward is a
-        # clean contraction too (no scatter). The MXU rounds the 0/±1
-        # selection to bf16 — free here since w is already bf16. Measured
-        # fastest per train step on v5e (vs 16-concat and gather+transpose).
+        # clean contraction too (no scatter). The 0/±1 selection is exact
+        # in bf16. Chosen over 16-concat and gather+transpose on the
+        # previous accelerator; not yet measured on the GPU.
         wb = jnp.einsum(
             "cab,c...kn->...akbn", jnp.asarray(HAMILTON_E, w.dtype), w
         )
@@ -135,7 +135,7 @@ def hamilton_expand(w: jnp.ndarray, conjugate: bool = False) -> jnp.ndarray:
 #   y_j = (m7 − m1 − m3) + (m8 − m4 + m2)
 #   y_k = (m9 − m1 − m4) + (m10 − m2 + m3)
 #
-# For conv/GEMM each "multiplication" is a real matmul on the MXU, so this is
+# For conv/GEMM each "multiplication" is a real matmul, so this is
 # a 16→10 FLOP reduction (1.6x) at the cost of cheap elementwise combos.
 # Verified against the naive product in tests/test_quaternion_ops.py.
 # ---------------------------------------------------------------------------
@@ -182,7 +182,7 @@ OUT_COMBO = np.array(
 # lives on the weight side, precomputed for free; O8 is dense but the
 # recombination is f32-accumulator FMAs. max|U8| ≈ 2.0, so bf16 rounding of
 # the weight combos is amplified no worse than the 10-product scheme's ±1
-# combos. 8/16 the MXU products of the reference's expanded conv — a 2.0x
+# combos. 8/16 the products of the reference's expanded conv — a 2.0x
 # FLOP cut (vs 1.6x for the 10-product scheme).
 # ---------------------------------------------------------------------------
 

@@ -1,11 +1,11 @@
 """Device mesh construction — the framework's NCCL-equivalent layer.
 
 The reference has no distributed backend at all (single Theano/TF device;
-SURVEY.md §2c). On TPU the communication layer IS the mesh + XLA collectives:
-axis "data" carries utterance-batch data parallelism over ICI, axis "model"
-carries tensor sharding of quaternion weights (SURVEY.md §2c P1/P2/P6,
-BASELINE.json north star). Multi-host bring-up goes through
-`jax.distributed.initialize` before mesh construction; after that, 1 chip and
+SURVEY.md §2c). Here the communication layer IS the mesh + XLA collectives
+(NCCL on GPUs): axis "data" carries utterance-batch data parallelism, axis
+"model" carries tensor sharding of quaternion weights (SURVEY.md §2c
+P1/P2/P6, BASELINE.json north star). Multi-host bring-up goes through
+`jax.distributed.initialize` before mesh construction; after that, 1 card and
 N hosts differ only in the device list handed to the mesh.
 
 Explicit NON-GOALS (SURVEY.md §2c P4/P5, documented as required):
@@ -40,8 +40,9 @@ def make_mesh(
     """Build a ("data", "model") mesh.
 
     n_data == -1 means "all remaining devices". Device order follows
-    jax.devices(), which enumerates ICI-contiguous chips first, so the model
-    axis (heavier traffic: weight all-gathers) lands on adjacent chips.
+    jax.devices(). The cards of one host are joined all to all by NVLink,
+    so every pair is equally close and the mesh shape follows the algorithm
+    alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
@@ -61,11 +62,11 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
 ):
-    """DCN bootstrap for multi-host slices (no-op on a single process).
+    """Multi-process bootstrap (no-op on a single process).
 
-    On TPU pods the runtime discovers ``num_processes``/``process_id`` from
-    the environment; pass them explicitly for manual bring-up (e.g. the
-    2-process CPU parity test in tests/test_multihost.py).
+    Pass ``num_processes``/``process_id`` explicitly where no cluster
+    environment supplies them (e.g. the 2-process CPU parity test in
+    tests/test_multihost.py).
     """
     # check `coordinator` first: jax.process_count() initializes the XLA
     # backend, after which jax.distributed.initialize() refuses to run

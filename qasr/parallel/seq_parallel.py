@@ -5,7 +5,7 @@ devices. Two ops need cross-shard structure:
 
 * **Convolution** (`qconv2d_seq_parallel`): a 2-D conv with a (kh, kw) kernel
   needs only the (kh-1)/2 boundary frames from each neighbor — `shard_map` +
-  `lax.ppermute` halo exchange over ICI, with global sequence boundaries
+  `lax.ppermute` halo exchange, with global sequence boundaries
   masked to the zero-padding SAME convolution expects. Time stride must be 1
   (the CTC topology's invariant in this framework).
 * **CTC loss** (`ctc_loss_seq_parallel`): the alpha recursion is sequential
@@ -45,9 +45,8 @@ def qconv2d_seq_parallel(
     the same sharding.
 
     ``variant``: "auto" routes each shard's local conv like the single-device
-    path — the rank-8 stacked scheme (8/16 the block path's MXU FLOPs) at
-    >= 128 quaternion channels, the block conv below (where per-product MXU
-    lanes underfill; docs/performance.md) — so long-utterance time-sharding
+    path — the rank-8 stacked scheme (8/16 the block path's FLOPs) at
+    >= 128 quaternion channels, the block conv below — so long-utterance time-sharding
     composes with the production compute scheme instead of paying the
     16-product expansion. "block"/"fast8" force a path. (The fast8 local
     conv uses asymmetric-padding autodiff, not the rotated-role custom VJP,
@@ -89,7 +88,7 @@ def qconv2d_seq_parallel(
         pw = (w_full.shape[2] - 1) // 2
         pw2 = w_full.shape[2] - 1 - pw
         if variant == "fast8":
-            from qasr.ops.pallas.qconv_ft import (
+            from qasr.ops.qlinalg import (
                 SCHEME8,
                 _qconv_stacked_xla,
                 pack_to_stacked,
@@ -128,7 +127,7 @@ def ctc_loss_seq_parallel(
     lattice emissions for its own [B, T/n, S] chunk only — no device ever
     materializes the full [B, T, S] emission tensor or the full logits, which
     is the point of time-sharding very long utterances. The [B, S] alpha
-    column is carried between shards over ICI with `ppermute`.
+    column is carried between shards with `ppermute`.
 
     Because the recursion is inherently sequential in time, the pipeline does
     n rounds in which exactly one shard's chunk carry is "live" — but under

@@ -5,8 +5,9 @@ shards the quaternion *output-channel* dim (last axis) over the "model" mesh
 axis, so every shard keeps all four Hamilton components of its channel slice —
 the component structure stays intact per shard (BASELINE.json north star).
 With GSPMD this behaves as weight-sharded storage + gathered compute (the
-FSDP-style recipe appropriate when a layer's weights exceed one chip's HBM),
-with all-gathers riding ICI; gradients reduce-scatter back automatically.
+FSDP-style recipe appropriate when a layer's weights exceed one card's
+memory), with all-gathers riding NVLink; gradients reduce-scatter back
+automatically.
 
 Batch arrays shard their leading dim over "data"; gradients DP-reduce via
 XLA-inserted psum. The same path-based rule shards the optax moments (mu/nu

@@ -1,9 +1,9 @@
 """Mesh-sharded training: DP over "data", TP/FSDP weight sharding over "model".
 
-The TPU replacement for the multi-device training the reference never had
-(SURVEY.md §2c): one pjit-compiled SPMD train step; GSPMD inserts psum for DP
-gradient reduction and all-gather/reduce-scatter for the model-sharded
-weights, all over ICI. 1 chip vs N hosts differ only in mesh construction.
+The multi-device training the reference never had (SURVEY.md §2c): one
+jit-compiled SPMD train step; GSPMD inserts psum for DP gradient reduction
+and all-gather/reduce-scatter for the model-sharded weights, which XLA hands
+to NCCL on GPUs. 1 card vs N hosts differ only in mesh construction.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Training driver: the L5 experiment loop (SURVEY.md §2a C11, §3.1).
 
 Epoch-less step loop over bucketed batches with periodic eval (greedy dev
-PER), Orbax checkpointing, and structured metrics incl. audio-seconds/s/chip.
+PER), checkpointing, and structured metrics incl. audio-seconds/s/chip.
 
 Always SPMD: the loop builds the (data, model) mesh from MeshConfig — a
 single chip is just the 1x1 mesh — so 1 chip, 1 host, and N hosts differ only

@@ -32,7 +32,7 @@ def per_device_bytes(tree) -> dict:
 
 def device_memory_stats() -> dict:
     """Per-device allocator stats (bytes_in_use / limit) where the backend
-    exposes them (TPU does; CPU returns {})."""
+    exposes them (GPU does; CPU returns {})."""
     out = {}
     for d in jax.local_devices():
         try:

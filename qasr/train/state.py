@@ -2,30 +2,35 @@
 
 Reference capability: Adam + fixed hyperparameters in the Keras train script
 (SURVEY.md §2a C11; mount empty). Here: optax adamw with warmup+cosine
-schedule, global-norm clipping, and a single pytree TrainState that Orbax
-checkpoints in full (params, opt state, step, PRNG key) — SURVEY.md §5
-checkpoint/resume plan.
+schedule, global-norm clipping, and a single pytree TrainState that
+qasr.train.checkpoint saves in full (params, opt state, step, PRNG key) —
+SURVEY.md §5 checkpoint/resume plan.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
+from qasr import nn
 from qasr.configs import Config
 from qasr.models.qcnn import QCNNEncoder, RealCNNEncoder
 
 
-class TrainState(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jnp.ndarray
     params: Any
     opt_state: Any
     dropout_rng: jax.Array
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     def apply_gradients(self, grads, tx):
         updates, new_opt = tx.update(grads, self.opt_state, self.params)
@@ -50,7 +55,6 @@ def build_model(cfg: Config) -> nn.Module:
             pool_size=m.pool_size,
             dropout_rate=m.dropout_rate,
             dtype=dtype,
-            use_pallas=m.use_pallas,
             variant=m.op_variant,
             dense_variant=m.dense_variant,
         )
@@ -69,58 +73,21 @@ def build_model(cfg: Config) -> nn.Module:
         from qasr.models.qlstm import QLSTMEncoder
 
         # op_variant for the qlstm arch selects the gate-projection paths:
-        #   auto/fast8_recurrent -> rank-8 everywhere — measured best
-        #     (61.2 ms/step vs all-block 79.1 at config-4 shapes: the
-        #     in-scan recurrent GEMM at M = 2B rows is WEIGHT-bandwidth
-        #     bound, and rank-8 halves the weight bytes re-read every scan
-        #     step; docs/performance.md)
+        #   auto/fast8_recurrent -> rank-8 recurrent (half the weight bytes
+        #     re-read every scan step), input projection by M = B*T
         #   fast8 -> rank-8 pre-scan input GEMM only, block recurrent (A/B)
         #   block -> expanded block GEMM everywhere (reference strategy)
-        #   pallas8 -> rank-8 input GEMM + SCAN-RESIDENT Pallas recurrence
-        #     (weights VMEM-resident across all T steps; requires bf16 and
-        #     lane-aligned hidden — qasr/ops/pallas/qlstm_scan.supported)
-        if m.op_variant not in (
-            "auto", "block", "fast8", "fast8_recurrent", "pallas8"
-        ):
+        # The default was chosen on the previous accelerator; a hypothesis
+        # on the GPU until the benchmark measures it.
+        if m.op_variant not in ("auto", "block", "fast8", "fast8_recurrent"):
             raise ValueError(
                 f"op_variant {m.op_variant!r} is not valid for arch='qlstm' "
-                "(choose auto | block | fast8 | fast8_recurrent | pallas8)"
+                "(choose auto | block | fast8 | fast8_recurrent)"
             )
-        if m.op_variant == "block":
-            input_proj = "block"
-        elif m.op_variant == "fast8":
-            input_proj = "fast8"  # explicit rank-8-input A/B arm
+        if m.op_variant in ("block", "fast8"):
+            input_proj, recurrent = m.op_variant, "block"
         else:
-            # auto: picked per layer by the GEMM's row count M = B*T
-            # (block wins at M >= 8192 — combo traffic scales with M;
-            # qasr/models/qlstm._input_proj_fn)
-            input_proj = "auto"
-        if m.op_variant == "pallas8":
-            recurrent = "pallas8"
-            input_proj = "pallas8"
-        else:
-            recurrent = (
-                "block" if m.op_variant in ("block", "fast8") else "fast8"
-            )
-        if m.op_variant == "auto" and recurrent == "fast8":
-            # measured best on the v5e (docs/performance.md): the
-            # scan-resident Pallas recurrence (38.9 vs 61.2 ms/step at
-            # config-4 shapes). Routed where its contract holds: bf16,
-            # lane-aligned hidden, bidirectional, TPU backend. Under a
-            # DP-sharded mesh the op partitions on batch via its
-            # custom_partitioning rule (weights/time replicated) — wiring
-            # validated on the 8-device CPU mesh
-            # (tests/test_qlstm.py::TestPallasScanSharded).
-            import jax
-
-            from qasr.ops.pallas import qlstm_scan
-
-            if (
-                jax.default_backend() == "tpu"
-                and m.bidirectional
-                and qlstm_scan.supported(m.lstm_features, dtype)
-            ):
-                recurrent = "pallas8"
+            input_proj, recurrent = "auto", "fast8"
         return QLSTMEncoder(
             conv_features=tuple(m.conv_features),
             dense_features=tuple(m.dense_features),
@@ -132,7 +99,6 @@ def build_model(cfg: Config) -> nn.Module:
             pool_size=m.pool_size,
             dropout_rate=m.dropout_rate,
             dtype=dtype,
-            use_pallas=m.use_pallas,
             input_proj=input_proj,
             recurrent=recurrent,
         )

@@ -1,7 +1,7 @@
 """Jitted train/eval steps: forward + CTC + Adam update in one dispatch.
 
 The reference's hot loop is Keras `fit_generator` dispatching per-batch into
-the backend graph (SURVEY.md §3.1). TPU equivalent: ONE jit-compiled
+the backend graph (SURVEY.md §3.1). Here: ONE jit-compiled
 ``train_step(state, batch) -> (state, metrics)`` containing forward, native
 CTC, and the optax update — a single device dispatch per step, donated input
 state, optional rematerialization of the conv stack.
@@ -33,7 +33,7 @@ def make_loss_fn(cfg: Config, model) -> Callable:
         )
 
     if cfg.train.remat_convs:
-        # rematerialize the encoder in backward: trade FLOPs for HBM
+        # rematerialize the encoder in backward: trade FLOPs for memory
         # (SURVEY.md environment notes: jax.checkpoint on the conv stack)
         fwd_train = jax.checkpoint(fwd_train)
 
@@ -73,8 +73,8 @@ def make_loss_fn(cfg: Config, model) -> Callable:
 
 
 def make_train_step(cfg: Config):
-    """Build the jitted train step. Donates `state` so params update in-place
-    in HBM (no double-buffering of the full train state)."""
+    """Build the jitted train step. Donates `state` so params update in place
+    in device memory (no double-buffering of the full train state)."""
     model = build_model(cfg)
     tx = build_optimizer(cfg)
     loss_fn = make_loss_fn(cfg, model)

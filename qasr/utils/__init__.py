@@ -1,8 +1,9 @@
 from qasr.utils.debug import checkify_fn, deterministic_mode, nan_debug
 from qasr.utils.profiling import (
-    CHIPS,
-    ChipSpec,
+    DEVICE_PEAKS,
+    DeviceSpec,
     conv_roofline,
+    device_spec,
     qconv_flops,
     steady_state_time,
     trace,
@@ -12,9 +13,10 @@ __all__ = [
     "checkify_fn",
     "deterministic_mode",
     "nan_debug",
-    "CHIPS",
-    "ChipSpec",
+    "DEVICE_PEAKS",
+    "DeviceSpec",
     "conv_roofline",
+    "device_spec",
     "qconv_flops",
     "steady_state_time",
     "trace",

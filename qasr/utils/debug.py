@@ -1,6 +1,6 @@
 """Numerics debugging / sanitizer hooks (SURVEY.md §5 "Race detection").
 
-The reference has nothing here (single device, Python). On TPU the
+The reference has nothing here (single device, Python). In JAX the
 equivalents are: NaN trapping via `jax.debug_nans`, functional error checking
 via `jax.experimental.checkify` (NaN/OOB/div-by-zero inside jit), and
 deterministic-reduction settings for bitwise-reproducible tests. Collective

@@ -73,7 +73,7 @@ def run_workload(
     pnorm = float(jax.jit(optax_global_norm)(state.params))
 
     # multi-host-safe checkpoint round trip (SURVEY.md §5): every process
-    # participates in the Orbax save/restore of the sharded state; the
+    # participates in the save/restore of the sharded state; the
     # restored state must reproduce the live one exactly and train on
     ckpt_restore_diff = None
     resumed_loss = None

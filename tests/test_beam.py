@@ -241,3 +241,33 @@ class TestProtocolWidth:
             logits, jnp.array([20]), beam_width=8, max_len=20, prune_logp=1e9
         )
         assert int(lens[0]) == 0
+
+
+class TestFlatLogitsFloat64:
+    """On the flat, blank-heavy logits of an untrained model, many prefixes
+    sit within float32 rounding of each other at the beam's edge, so the
+    two float32 searches can part ways. In float64 the device beam and the
+    C++ beam are the same search: identical hypotheses, scores to rounding."""
+
+    @pytest.mark.parametrize("seed,scale", [(0, 0.05), (2, 0.05), (4, 0.3)])
+    def test_device_equals_native_in_float64(self, seed, scale):
+        from qasr.native import ctc_beam_decode_native
+
+        b, t, v = 16, 160, 62
+        rng = np.random.RandomState(seed)
+        logits = (rng.standard_normal((b, t, v)) * scale).astype(np.float64)
+        logits[:, :, 0] += 1.0
+        lens = np.full((b,), t, np.int32)
+        kw = dict(beam_width=100, blank_id=0, max_len=80, prune_logp=-20.0)
+        with jax.enable_x64(True):
+            d_seq, d_lens, d_score = (
+                np.asarray(a)
+                for a in ctc_beam_search_decode(jnp.asarray(logits), jnp.asarray(lens), **kw)
+            )
+        assert d_score.dtype == np.float64
+        n_seq, n_lens, n_score = ctc_beam_decode_native(logits, lens, **kw)
+        assert n_score.dtype == np.float64
+        np.testing.assert_array_equal(d_lens, n_lens)
+        for i in range(b):
+            np.testing.assert_array_equal(d_seq[i, : d_lens[i]], n_seq[i, : n_lens[i]])
+        np.testing.assert_allclose(d_score, n_score, rtol=1e-12)

@@ -91,7 +91,7 @@ class TestTranscriber:
             Transcriber(str(tmp_path / "nope"))
 
     def test_best_pointer_to_gcd_step_falls_back_to_latest(self, trained_ckpt):
-        """Orbax max_to_keep GC can delete the step best.json points at; the
+        """keep_checkpoints GC can delete the step best.json points at; the
         default restore must then use the latest surviving step, not crash."""
         import json
         import shutil

@@ -206,7 +206,7 @@ class TestQBatchNorm:
 
 
 class TestStackedVariants:
-    """The stacked F-major conv-chain variants (docs/performance.md) must be
+    """The stacked F-major conv-chain variants must be
     drop-in: same param tree as the legacy routing (checkpoint-compatible)
     and the same outputs for shared params."""
 
@@ -227,7 +227,7 @@ class TestStackedVariants:
         p = m_leg.init(jax.random.PRNGKey(1), x, train=False)["params"]
         y_leg = m_leg.apply({"params": p}, x, train=False)
         for variant in (
-            "auto", "stacked", "stacked8", "stacked8g", "fused", "fused8"
+            "auto", "stacked", "stacked8", "stacked8g", "block", "fast10"
         ):
             m = self._build(variant)
             y = m.apply({"params": p}, x, train=False)
@@ -239,12 +239,12 @@ class TestStackedVariants:
     def test_param_trees_identical(self):
         x = jax.random.normal(jax.random.PRNGKey(0), (1, 16, 40, 4))
         trees = {}
-        for variant in ("legacy_auto", "stacked", "fused8"):
+        for variant in ("legacy_auto", "stacked", "stacked8g"):
             p = self._build(variant).init(jax.random.PRNGKey(1), x, train=False)[
                 "params"
             ]
             trees[variant] = jax.tree_util.tree_map(lambda a: a.shape, p)
-        assert trees["legacy_auto"] == trees["stacked"] == trees["fused8"]
+        assert trees["legacy_auto"] == trees["stacked"] == trees["stacked8g"]
 
     def test_stacked_grads_flow(self):
         x = jax.random.normal(jax.random.PRNGKey(2), (2, 16, 40, 4))

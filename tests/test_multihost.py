@@ -106,7 +106,7 @@ class TestTwoProcessParity:
         assert r0["tp_cross_loss"] == r1["tp_cross_loss"]
         # the host-batch adapter refuses process-interleaved meshes
         assert r0["adapter_guard"] and r1["adapter_guard"]
-        # multi-host Orbax round trip: exact params back, training resumes
+        # multi-host checkpoint round trip: exact params back, training resumes
         assert r0["ckpt_restore_diff"] == 0.0
         assert r1["ckpt_restore_diff"] == 0.0
         assert r0["resumed_loss"] == r1["resumed_loss"]

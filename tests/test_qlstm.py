@@ -242,14 +242,20 @@ class TestRecurrentFast8:
         )
 
     def test_pallas8_op_variant_builds(self):
+        # the scan-resident kernel this variant selected is gone: the name
+        # is now rejected like any other unknown variant
         from qasr.configs import get_config
         from qasr.train.state import build_model
 
         cfg = get_config("librispeech_qlstm").override(
             **{"model.op_variant": "pallas8"}
         )
-        m = build_model(cfg)
-        assert m.recurrent == "pallas8"
+        with pytest.raises(ValueError, match="not valid for arch='qlstm'"):
+            build_model(cfg)
+
+    def test_auto_routes_rank8_recurrence(self):
+        m = build_model(get_config("librispeech_qlstm"))
+        assert (m.recurrent, m.input_proj) == ("fast8", "auto")
 
     def test_invalid_qlstm_op_variant_rejected(self):
         from qasr.configs import get_config
@@ -265,111 +271,109 @@ class TestRecurrentFast8:
 
 
 class TestPallasScan:
-    """Scan-resident Pallas recurrence (qasr/ops/pallas/qlstm_scan.py) —
-    interpret-mode parity vs the XLA rank-8 in-scan path with shared params
-    (fwd + every param grad), across the wrapper's padding paths (odd T,
-    B not a multiple of the row tile) and with per-utterance lengths."""
+    """The fused-direction scan (rank-8 and block recurrences) against
+    `qbilstm_reference`, the step-by-step float32 twin: forward and every
+    param grad, with odd T, tiny shapes and per-utterance lengths."""
 
-    @pytest.fixture(autouse=True)
-    def _force_kernel(self, monkeypatch):
-        # off-TPU the op routes to its XLA twin; these tests exercise the
-        # KERNEL (interpret mode), so force that branch
-        from qasr.ops.pallas import qlstm_scan
+    def _pair(self, hidden=8, recurrent="fast8"):
+        from qasr.models.qlstm import qbilstm_reference
 
-        monkeypatch.setattr(qlstm_scan, "FORCE_KERNEL", True)
-
-    def _pair(self, hidden=128):
-        from qasr.models.qlstm import QBiLSTM
-
-        return (
-            QBiLSTM(hidden=hidden, recurrent="fast8"),
-            QBiLSTM(hidden=hidden, recurrent="pallas8"),
-        )
+        m = QBiLSTM(hidden=hidden, recurrent=recurrent)
+        return m, qbilstm_reference
 
     @pytest.mark.parametrize(
         "b,t",
         [
-            (2, 16),   # aligned-ish
-            (3, 17),   # odd T -> time padding; B=3 -> row-tile padding
+            (2, 16),
+            (3, 17),   # odd T, ragged lengths
             (1, 5),    # tiny
         ],
     )
     def test_forward_parity(self, b, t):
-        from jax.experimental.pallas import tpu as pltpu
-
-        ref, pal = self._pair()
+        m, ref = self._pair()
         x = jax.random.normal(jax.random.PRNGKey(0), (b, t, 4 * 8)) * 0.5
         lengths = jnp.asarray((np.arange(b) % t + max(1, t - b)) % t + 1)
-        p = ref.init(jax.random.PRNGKey(1), x, lengths)
-        y_ref = ref.apply(p, x, lengths)
-        with pltpu.force_tpu_interpret_mode():
-            y_pal = pal.apply(p, x, lengths)
+        p = m.init(jax.random.PRNGKey(1), x, lengths)
         np.testing.assert_allclose(
-            np.asarray(y_pal), np.asarray(y_ref), rtol=2e-5, atol=2e-5
+            np.asarray(m.apply(p, x, lengths)),
+            np.asarray(ref(p["params"], x, lengths)),
+            rtol=2e-5, atol=2e-5,
         )
 
     def test_forward_parity_no_lengths(self):
-        from jax.experimental.pallas import tpu as pltpu
-
-        ref, pal = self._pair()
+        m, ref = self._pair()
         x = jax.random.normal(jax.random.PRNGKey(2), (2, 12, 4 * 8)) * 0.5
-        p = ref.init(jax.random.PRNGKey(1), x)
-        y_ref = ref.apply(p, x)
-        with pltpu.force_tpu_interpret_mode():
-            y_pal = pal.apply(p, x)
+        p = m.init(jax.random.PRNGKey(1), x)
         np.testing.assert_allclose(
-            np.asarray(y_pal), np.asarray(y_ref), rtol=2e-5, atol=2e-5
+            np.asarray(m.apply(p, x)), np.asarray(ref(p["params"], x)),
+            rtol=2e-5, atol=2e-5,
         )
 
     def test_grads_parity(self):
-        from jax.experimental.pallas import tpu as pltpu
-
-        ref, pal = self._pair()
+        m, ref = self._pair()
         b, t = 3, 14
         x = jax.random.normal(jax.random.PRNGKey(3), (b, t, 4 * 8)) * 0.5
         lengths = jnp.asarray([14, 9, 4], jnp.int32)
-        p = ref.init(jax.random.PRNGKey(1), x, lengths)
-
-        def loss(m):
-            return lambda p_: jnp.sum(
-                m.apply(p_, x, lengths).astype(jnp.float32) ** 2
-            )
-
-        g_ref = jax.grad(loss(ref))(p)
-        with pltpu.force_tpu_interpret_mode():
-            g_pal = jax.grad(loss(pal))(p)
-        flat_ref = jax.tree_util.tree_leaves_with_path(g_ref)
-        flat_pal = dict(
-            (jax.tree_util.keystr(kp), v)
-            for kp, v in jax.tree_util.tree_leaves_with_path(g_pal)
-        )
-        for kp, a in flat_ref:
-            b_ = flat_pal[jax.tree_util.keystr(kp)]
+        p = m.init(jax.random.PRNGKey(1), x, lengths)
+        g = jax.grad(lambda p_: jnp.sum(m.apply(p_, x, lengths) ** 2))(p)
+        g_ref = jax.grad(
+            lambda p_: jnp.sum(ref(p_["params"], x, lengths) ** 2)
+        )(p)
+        for (kp, a), (_, b_) in zip(
+            jax.tree_util.tree_leaves_with_path(g_ref),
+            jax.tree_util.tree_leaves_with_path(g),
+        ):
             np.testing.assert_allclose(
-                np.asarray(b_),
-                np.asarray(a),
-                rtol=2e-4,
-                atol=2e-4,
+                np.asarray(b_), np.asarray(a), rtol=2e-4, atol=2e-4,
                 err_msg=f"grad mismatch at {jax.tree_util.keystr(kp)}",
             )
 
-    def test_unaligned_hidden_rejected(self):
-        from qasr.ops.pallas.qlstm_scan import qlstm_scan_fast8, supported
+    def test_any_hidden_size(self):
+        # the XLA scan has no alignment contract: H=6 with the block
+        # recurrence, against the same reference
+        m, ref = self._pair(hidden=6, recurrent="block")
+        x = jax.random.normal(jax.random.PRNGKey(4), (2, 9, 4 * 5)) * 0.5
+        p = m.init(jax.random.PRNGKey(1), x)
+        np.testing.assert_allclose(
+            np.asarray(m.apply(p, x)), np.asarray(ref(p["params"], x)),
+            rtol=2e-5, atol=2e-5,
+        )
 
-        assert supported(128) and supported(256)
-        assert not supported(96)
-        assert not supported(1024)  # weights exceed VMEM
-        xz = jnp.zeros((4, 2, 1, 16 * 96))
-        wc8 = jnp.zeros((2, 8, 96, 4 * 96))
-        with pytest.raises(ValueError, match="lane-aligned"):
-            qlstm_scan_fast8(xz, wc8)
+    @pytest.mark.parametrize("input_proj", ["block", "fast8", "auto"])
+    def test_input_projection_paths(self, input_proj):
+        m = QBiLSTM(hidden=8, recurrent="fast8", input_proj=input_proj)
+        _, ref = self._pair()
+        x = jax.random.normal(jax.random.PRNGKey(5), (2, 12, 4 * 8)) * 0.5
+        lengths = jnp.asarray([12, 7], jnp.int32)
+        p = m.init(jax.random.PRNGKey(1), x, lengths)
+        np.testing.assert_allclose(
+            np.asarray(m.apply(p, x, lengths)),
+            np.asarray(ref(p["params"], x, lengths)),
+            rtol=2e-5, atol=2e-5,
+        )
 
-    def test_supported_gates_dtype(self):
-        from qasr.ops.pallas.qlstm_scan import supported
 
-        assert supported(256, jnp.bfloat16)
-        assert not supported(256, jnp.float32)
-        assert supported(256, None)  # interpret-mode tests
+class TestUnidirectionalReference:
+    """QLSTMLayer runs the same one-scan recurrence as QBiLSTM with a
+    direction axis of 1: each direction against its half of the float32
+    step-by-step reference, with ragged lengths."""
+
+    @pytest.mark.parametrize("recurrent", ["fast8", "block"])
+    @pytest.mark.parametrize("reverse", [False, True])
+    def test_matches_reference_direction(self, reverse, recurrent):
+        from qasr.models.qlstm import qbilstm_reference
+
+        b, t, h = 3, 11, 6
+        x = jax.random.normal(jax.random.PRNGKey(7), (b, t, 4 * 5)) * 0.5
+        lengths = jnp.asarray([11, 6, 2], jnp.int32)
+        m = QLSTMLayer(hidden=h, reverse=reverse, recurrent=recurrent)
+        p = m.init(jax.random.PRNGKey(1), x, lengths)["params"]
+        ref = qbilstm_reference({"fwd_cell": p["cell"], "bwd_cell": p["cell"]}, x, lengths)
+        want = qchannel_split(ref, 2)[1 if reverse else 0]
+        np.testing.assert_allclose(
+            np.asarray(m.apply({"params": p}, x, lengths)), np.asarray(want),
+            rtol=2e-5, atol=2e-5,
+        )
 
 
 class TestSharedConvTower:
@@ -409,49 +413,41 @@ class TestSharedConvTower:
 
 
 class TestPallasScanSharded:
-    """custom_partitioning wiring: the scan op under a DP-sharded jit on
-    the 8-device mesh must partition on batch (weights/time replicated) and
-    match the unsharded XLA rank-8 path — fwd and every grad. (Off-TPU this
-    exercises the op's XLA twin per-shard; the kernel itself is covered by
-    TestPallasScan and bench.py's real-TPU Mosaic gate.)"""
+    """The fused scan under a DP-sharded jit on the 8-device CPU mesh
+    (GSPMD partitions the lax.scan on batch; weights and time replicated)
+    must match the unsharded float32 reference — fwd and every grad."""
 
     def test_dp_sharded_parity(self):
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+        from qasr.models.qlstm import qbilstm_reference
+
         mesh = Mesh(np.array(jax.devices()[:8]).reshape(8), ("data",))
-        b, t, h = 8, 12, 128
+        b, t, h = 8, 12, 16
         x = jax.random.normal(jax.random.PRNGKey(0), (b, t, 4 * 2 * h)) * 0.3
         lengths = jnp.asarray([12, 9, 7, 12, 3, 12, 5, 11], jnp.int32)
-        pal = QBiLSTM(h, recurrent="pallas8")
-        ref = QBiLSTM(h, recurrent="fast8")
-        p = ref.init(jax.random.PRNGKey(1), x, lengths)
-        xs = jax.device_put(x, NamedSharding(mesh, P("data")))
-        ls = jax.device_put(lengths, NamedSharding(mesh, P("data")))
-        ps = jax.device_put(p, NamedSharding(mesh, P()))
-
+        m = QBiLSTM(h, recurrent="fast8")
+        p = m.init(jax.random.PRNGKey(1), x, lengths)
+        rep, dat = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
+        xs, ls, ps = (
+            jax.device_put(x, dat), jax.device_put(lengths, dat),
+            jax.device_put(p, rep),
+        )
         y = jax.jit(
-            lambda pp, xx, ll: pal.apply(pp, xx, ll),
-            in_shardings=(
-                NamedSharding(mesh, P()),
-                NamedSharding(mesh, P("data")),
-                NamedSharding(mesh, P("data")),
-            ),
+            lambda pp, xx, ll: m.apply(pp, xx, ll),
+            in_shardings=(rep, dat, dat),
         )(ps, xs, ls)
         np.testing.assert_allclose(
-            np.asarray(y), np.asarray(ref.apply(p, x, lengths)),
+            np.asarray(y), np.asarray(qbilstm_reference(p["params"], x, lengths)),
             rtol=2e-5, atol=2e-5,
         )
-
-        def loss(m, xx, ll):
-            return lambda pp: jnp.sum(
-                m.apply(pp, xx, ll).astype(jnp.float32) ** 2
-            )
-
         g = jax.jit(
-            jax.grad(loss(pal, xs, ls)),
-            in_shardings=(NamedSharding(mesh, P()),),
+            jax.grad(lambda pp: jnp.sum(m.apply(pp, xs, ls) ** 2)),
+            in_shardings=(rep,),
         )(ps)
-        g_ref = jax.grad(loss(ref, x, lengths))(p)
+        g_ref = jax.grad(
+            lambda pp: jnp.sum(qbilstm_reference(pp["params"], x, lengths) ** 2)
+        )(p)
         for (kp, a), (_, b_) in zip(
             jax.tree_util.tree_leaves_with_path(g_ref),
             jax.tree_util.tree_leaves_with_path(g),

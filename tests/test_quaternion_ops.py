@@ -281,7 +281,7 @@ class TestRank8Scheme:
         assert np.abs(U8).max() < 2.5
 
     def test_fast8_stacked_conv_matches_oracle(self):
-        from qasr.ops.pallas.qconv_ft import (
+        from qasr.ops.qlinalg import (
             pack_to_stacked,
             qconv_fast8_stacked,
             stacked_to_pack,
@@ -298,7 +298,7 @@ class TestRank8Scheme:
         )
 
     def test_fast8_stacked_grads_match(self):
-        from qasr.ops.pallas.qconv_ft import pack_to_stacked, qconv_fast8_stacked
+        from qasr.ops.qlinalg import pack_to_stacked, qconv_fast8_stacked
 
         k1, k2 = jax.random.split(jax.random.PRNGKey(7))
         x = jax.random.normal(k1, (2, 10, 7, 4 * 3))
@@ -308,7 +308,7 @@ class TestRank8Scheme:
         g8 = jax.grad(
             lambda a, b: jnp.sum(qconv_fast8_stacked(a, b) ** 2), argnums=(0, 1)
         )(x_st, w)
-        from qasr.ops.pallas.qconv_ft import stacked_to_pack
+        from qasr.ops.qlinalg import stacked_to_pack
 
         gref = jax.grad(
             lambda a, b: jnp.sum(
@@ -351,7 +351,7 @@ class TestGroupedConv:
     rank-8 path for values AND the hand-written rotated-role backward."""
 
     def test_value_and_grads_match_stacked(self):
-        from qasr.ops.pallas.qconv_ft import (
+        from qasr.ops.qlinalg import (
             qconv_fast8_grouped,
             qconv_fast8_stacked,
         )
@@ -374,14 +374,14 @@ class TestGroupedConv:
         np.testing.assert_allclose(g1[1], g2[1], rtol=1e-3, atol=1e-3)
 
     def test_even_kernel_falls_back_to_autodiff(self):
-        from qasr.ops.pallas.qconv_ft import qconv_fast8_grouped
+        from qasr.ops.qlinalg import qconv_fast8_grouped
         from qasr.ops.qlinalg import qconv
 
         kx, kw = jax.random.split(jax.random.PRNGKey(1))
         x = jax.random.normal(kx, (1, 4, 4, 8, 4))
         w = jax.random.normal(kw, (4, 2, 2, 4, 4)) * 0.3
         # value parity vs the block oracle through the packed layout
-        from qasr.ops.pallas.qconv_ft import stacked_to_pack
+        from qasr.ops.qlinalg import stacked_to_pack
 
         got = jnp.swapaxes(stacked_to_pack(qconv_fast8_grouped(x, w)), 1, 2)
         xp = jnp.swapaxes(stacked_to_pack(x), 1, 2)

@@ -313,13 +313,6 @@ class TestRemat:
             float(m1["grad_norm"]), float(m2["grad_norm"]), rtol=1e-4
         )
 
-    # NOTE: a fused-chain (qconv_chain) + jax.checkpoint composition test
-    # cannot run here: interpret-mode pallas_call carries an OrderedIOEffect
-    # that remat's partial-eval rejects (real-TPU lowering has no such
-    # effect). The custom_vjp+remat pattern itself is covered by the stacked
-    # test below (identical VJP structure), and the chain kernels' real-TPU
-    # grads are parity-gated every round in bench.mosaic_gate.
-
     def test_remat_composes_with_stacked_custom_vjp(self):
         """jax.checkpoint over the rank-8 stacked chain (whose dx/dW come
         from a custom VJP) must reproduce plain grads exactly."""

@@ -107,5 +107,5 @@ if best:
     print('BEST max|U|=%.2f nnzO=%d' % score)
     np.set_printoptions(precision=6, suppress=True, linewidth=140)
     print("U=\n", U); print("V=\n", V); print("O=\n", O)
-    np.savez("/tmp/rank8.npz", U=U, V=V, O=O)
-    print("saved /tmp/rank8.npz")
+    np.savez("rank8.npz", U=U, V=V, O=O)
+    print("saved rank8.npz")

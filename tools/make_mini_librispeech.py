@@ -10,7 +10,7 @@ each character rendered with a distinct deterministic formant signature
 decode of real corpora is covered by qasr/native/flac_decode.cpp + tests).
 
 Usage:
-    python tools/make_mini_librispeech.py --out /tmp/qasr_mini_libri \
+    python tools/make_mini_librispeech.py --out data/mini_libri \
         --speakers 8 --utts-per-speaker 12 --seed 0
 """
 

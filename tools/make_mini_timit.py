@@ -15,7 +15,7 @@ This is a pipeline/convergence fixture, not a phonetics simulation: PER on it
 measures that the framework learns, not how well it would do on real speech.
 
 Usage:
-    python tools/make_mini_timit.py --out /tmp/qasr_mini_timit \
+    python tools/make_mini_timit.py --out data/mini_timit \
         --train-speakers 12 --utts-per-speaker 8 --seed 0
 """
 

@@ -1,14 +1,14 @@
 #!/usr/bin/env python
-"""Config-5 (librispeech_large) per-chip HBM envelope, measured by AOT
-compilation — no training run needed (round-5 verdict task: the first real
-LibriSpeech run must not be the first time anyone learns whether the
-preset fits).
+"""Config-5 (librispeech_large) per-device memory envelope, measured by AOT
+compilation — no training run needed, so the first real LibriSpeech run is
+not the first time anyone learns whether the preset fits.
 
 For each (per-chip batch, bucket T) point, AOT-compiles the full train
 step (fwd + CTC + Adam, donated state) with and without
 ``train.remat_convs`` and reports XLA's compiled memory stats: arguments
 (params + opt state + batch) and temporaries (activations/workspace).
-Peak per-chip HBM ~ args + temps; v5e has 16 GB.
+Peak per-device memory ~ args + temps, compared with what the device lets
+JAX allocate (``memory_stats()["bytes_limit"]`` of the first device).
 
   python tools/memory_envelope.py [--preset librispeech_large]
       [--points 8:512,8:1024,16:512,...] [--json]
@@ -74,20 +74,26 @@ def main():
         default="4:2048,8:2048,16:2048,16:1024,32:1024,64:512,64:2048",
         help="comma list of per-chip batch:bucketT points",
     )
-    ap.add_argument("--hbm-gb", type=float, default=16.0)
     ap.add_argument("--as-json", action="store_true")
     args = ap.parse_args()
 
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/qasr_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from qasr.configs import get_config
 
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise SystemExit(
+            f"{jax.devices()[0].device_kind} reports no memory limit; "
+            "run this on the card"
+        )
+    budget_gb = stats["bytes_limit"] / 1e9
+    print(f"device {jax.devices()[0].device_kind}: {budget_gb:.2f} GB for JAX",
+          flush=True)
     cfg = get_config(args.preset)
     rows = []
     for point in args.points.split(","):
@@ -96,8 +102,8 @@ def main():
             try:
                 r = measure_point(cfg, b, t, remat)
                 r.update(b=b, t=t, remat=remat,
-                         fits=r["total_gb"] < args.hbm_gb * 0.95)
-            except Exception as e:  # compile-time OOM raises
+                         fits=r["total_gb"] < budget_gb * 0.95)
+            except jax.errors.JaxRuntimeError as e:  # compile-time OOM
                 r = {"b": b, "t": t, "remat": remat, "error": str(e)[:120]}
             rows.append(r)
             if not args.as_json:
@@ -109,7 +115,7 @@ def main():
                         f"{r['args_gb']:.2f} GB + temps {r['temp_gb']:.2f} GB"
                         f" = {r['total_gb']:.2f} GB"
                         f" {'FITS' if r['fits'] else 'OOM'}"
-                        f" (of {args.hbm_gb:.0f} GB)"
+                        f" (of {budget_gb:.1f} GB)"
                     , flush=True)
     if args.as_json:
         print(json.dumps(rows))

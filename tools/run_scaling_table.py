@@ -81,11 +81,9 @@ def main():
 
     if os.environ.get("JAX_COORDINATOR_ADDRESS"):
         jax.distributed.initialize()
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/qasr_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from qasr.configs import get_config
 

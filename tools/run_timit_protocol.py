@@ -15,10 +15,10 @@ Runs the full reference protocol end-to-end:
 Against a real TIMIT directory:
 
   python tools/run_timit_protocol.py --data-dir /path/to/TIMIT \
-      --ckpt /tmp/qasr_timit_protocol
+      --ckpt checkpoints/timit_protocol
 
-Proven end-to-end in this container against the mini-TIMIT fixture
-(--make-mini generates it; see docs/end_to_end.md for the recorded run):
+Against the mini-TIMIT fixture (--make-mini generates it; see
+docs/end_to_end.md):
 
   python tools/run_timit_protocol.py --make-mini \
       --set train.num_steps=2000 --preset timit_qcnn_fm32
@@ -40,7 +40,7 @@ def main():
     ap.add_argument("--preset", default="timit_qcnn",
                     help="timit_qcnn = the paper's best model (QCNN-256)")
     ap.add_argument("--data-dir", default=None, help="TIMIT root")
-    ap.add_argument("--ckpt", default="/tmp/qasr_timit_protocol")
+    ap.add_argument("--ckpt", default="checkpoints/timit_protocol")
     ap.add_argument("--make-mini", action="store_true",
                     help="no corpus: generate the mini-TIMIT fixture")
     ap.add_argument("--set", action="append", nargs="+", default=[],
@@ -51,7 +51,7 @@ def main():
 
     data_dir = args.data_dir
     if args.make_mini:
-        data_dir = data_dir or "/tmp/qasr_mini_timit_protocol"
+        data_dir = data_dir or "data/mini_timit_protocol"
         if not os.path.isdir(os.path.join(data_dir, "train")):
             subprocess.run(
                 [
@@ -67,11 +67,9 @@ def main():
 
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/qasr_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from qasr.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from qasr.configs import get_config
 
